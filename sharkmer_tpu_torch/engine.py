@@ -1,0 +1,288 @@
+"""The counting engine: stream reads -> device count table -> spectra.
+
+Torch port of ``sharkmer_tpu.engine`` on the sorted backend and one
+device (``device``): the same round-robin chunk routing, per-chunk
+stores, in-order consolidation and count-conservation invariants.
+``backend="hash"`` and ``n_shards > 1`` are not ported yet.
+
+Pipeline parity with the reference
+(upstream sharkmer src/io.rs:366-595, 977-1161):
+
+* Reads are assigned to incremental chunks round-robin in batches of
+  1000 (io.rs:355-361).
+* ``chunks == 0`` skips histograms ("plain merge" mode) but still
+  counts into one internal chunk (io.rs:377-379).
+* Consolidation processes chunks in order; after each chunk the
+  running histogram is snapshotted (io.rs:1016-1027). The final
+  histogram equals the single-pass histogram regardless of chunk count
+  (chunk invariance, tests/spcr_18s.rs:438-528).
+* Run invariants are asserted: total hashed count == k-mers ingested
+  (io.rs:1042-1047), histogram totals match the table
+  (io.rs:1120-1132).
+
+Device shape: the reference merges per-chunk CPU hash maps into a
+master map one entry at a time; here "merging chunk j" concatenates
+chunk j's sorted runs onto the master and re-aggregates — the
+per-chunk snapshot is a clipped bincount over the merged counts.
+Chunked ingest STREAMS: each chunk
+owns its own device table fed as reads arrive (host holds at most
+``CHUNK_PENDING_READS`` reads per chunk, independent of the total read
+count — reference parity with io.rs:355-361, which streams into
+per-chunk tables), and consolidation folds the chunk tables into the
+master in chunk order via ``merge_from``.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from .ops import encoding
+from .ops.sorted_store import SortedKmerStore, _default_max_agg, _next_pow2
+
+log = logging.getLogger("sharkmer")
+
+N_READS_PER_BATCH = 1000  # round-robin chunk assignment granularity
+DEVICE_BATCH_READS = 1 << 16  # reads per device ingest call
+CHUNK_PENDING_READS = 1 << 13  # host-buffered reads per chunk (chunked mode)
+WIDTH_BUCKET = 32  # read widths are padded up to a multiple of this
+
+
+@dataclass
+class IngestStats:
+    n_reads_read: int = 0
+    n_bases_read: int = 0
+    n_reads_ingested: int = 0
+    n_bases_ingested: int = 0  # valid (non-N) bases
+    n_kmers_ingested: int = 0
+
+
+@dataclass
+class CountingEngine:
+    k: int
+    device: torch.device
+    n_chunks: int = 0
+    histo_max: int = 10000
+    n_shards: int = 1  # >1 is not ported yet
+    backend: str = "sorted"  # "hash" is not ported yet
+    table: SortedKmerStore = field(init=False)
+    stats: IngestStats = field(init=False)
+    _chunk_tables: list = field(init=False)
+    _chunk_pending: list[list] = field(init=False)
+    _pending_reads: list[int] = field(init=False)
+    _stream_buffer: list[bytes] = field(init=False)
+    _kmer_count_dev: object = field(init=False, default=None)  # device int64
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.n_shards > 1:
+            raise NotImplementedError(
+                "--n-shards > 1 is not ported to sharkmer_tpu_torch yet "
+                "(ROADMAP: modules to port, parallel/)"
+            )
+        if self.backend != "sorted":
+            raise NotImplementedError(
+                f"--backend {self.backend} is not ported to "
+                f"sharkmer_tpu_torch yet (ROADMAP: modules to port, the "
+                f"hash backend)"
+            )
+        self.table = SortedKmerStore(self.k, self.device)
+        self.stats = IngestStats()
+        n = max(self.n_chunks, 1)
+        self._chunk_tables = [None] * n
+        self._chunk_pending = [[] for _ in range(n)]
+        self._pending_reads = [0] * n
+        self._stream_buffer = []
+
+    # -- ingest -------------------------------------------------------------
+
+    @property
+    def _buffering(self) -> bool:
+        # Per-chunk snapshots need chunk-ordered consolidation, so reads
+        # stream into PER-CHUNK device tables when more than one chunk
+        # exists (merged into the master, in order, at consolidate).
+        return max(self.n_chunks, 1) > 1
+
+    def _chunk_table(self, c: int):
+        """The chunk's own device table (lazily created, reduced size so
+        n_chunks tables fit the same footprint as one master)."""
+        if self._chunk_tables[c] is None:
+            n = max(self.n_chunks, 1)
+            # each chunk's raw buffer gets a fair share of the drain
+            # budget so all chunk buffers together cost one master's
+            agg = _next_pow2(max(1 << 16, _default_max_agg(self.device) // n))
+            self._chunk_tables[c] = SortedKmerStore(
+                self.k, self.device, max_agg=agg
+            )
+        return self._chunk_tables[c]
+
+    def _push_pending(self, c: int, item, n_reads: int) -> None:
+        """Queue reads for chunk c; flush to its device table at the cap
+        (host RAM stays bounded at n_chunks x CHUNK_PENDING_READS reads
+        regardless of the total read count)."""
+        self._chunk_pending[c].append(item)
+        self._pending_reads[c] += n_reads
+        if self._pending_reads[c] >= CHUNK_PENDING_READS:
+            self._flush_pending(c)
+
+    def _flush_pending(self, c: int) -> None:
+        if not self._chunk_pending[c]:
+            return
+        seqs = self._chunk_pending[c]
+        self._chunk_pending[c] = []
+        self._pending_reads[c] = 0
+        self._chunk_tables[c] = self._ingest_seqs(seqs, self._chunk_table(c))
+
+    def ingest(self, sequences: Iterator[bytes], max_reads: int = 0) -> bool:
+        """Consume sequences (ASCII bytes). Returns True if max_reads hit."""
+        n_chunks = max(self.n_chunks, 1)
+        for seq in sequences:
+            batch_idx = self.stats.n_reads_read // N_READS_PER_BATCH
+            chunk_id = batch_idx % n_chunks
+            self.stats.n_reads_read += 1
+            self.stats.n_bases_read += len(seq)
+            if self._buffering:
+                self._push_pending(chunk_id, seq, 1)
+            else:
+                self._stream_buffer.append(seq)
+                if len(self._stream_buffer) >= DEVICE_BATCH_READS:
+                    self.table = self._ingest_seqs(self._stream_buffer, self.table)
+                    self._stream_buffer = []
+            if max_reads > 0 and self.stats.n_reads_read >= max_reads:
+                return True
+        return False
+
+    def ingest_code_batch(self, codes: np.ndarray, lens: np.ndarray,
+                          max_reads: int = 0) -> bool:
+        """Consume a pre-encoded [n, width] uint8 batch (native loader
+        path). Returns True when max_reads is reached."""
+        n_chunks = max(self.n_chunks, 1)
+        n = codes.shape[0]
+        if max_reads > 0:
+            n = min(n, max_reads - self.stats.n_reads_read)
+            if n <= 0:
+                return True
+            codes, lens = codes[:n], lens[:n]
+        start = self.stats.n_reads_read
+        self.stats.n_reads_read += n
+        self.stats.n_bases_read += int(lens.sum())
+        if self._buffering:
+            chunk_ids = ((np.arange(start, start + n) // N_READS_PER_BATCH)
+                         % n_chunks)
+            for c in np.unique(chunk_ids):
+                rows = codes[chunk_ids == c]
+                self._push_pending(int(c), rows, rows.shape[0])
+        else:
+            self.table = self._ingest_codes_array(codes, self.table)
+        return max_reads > 0 and self.stats.n_reads_read >= max_reads
+
+    def _ingest_codes_array(self, codes: np.ndarray, table):
+        """Insert the canonical k-mers of an encoded batch into `table`
+        (returned updated; run stats accumulate on the engine)."""
+        if codes.shape[0] == 0:
+            return table
+        n_rows = codes.shape[0]
+        codes_dev = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
+        kmers, valid = encoding.canonical_kmers(codes_dev, self.k)
+        n_valid_bases = int(np.sum(codes < encoding.CODE_N))
+        # k-mer totals accumulate ON DEVICE: reading `valid` (or any
+        # per-batch scalar) on the host would wait for the device
+        # every batch
+        batch_kmers = valid.sum()
+        if self._kmer_count_dev is None:
+            self._kmer_count_dev = batch_kmers
+        else:
+            self._kmer_count_dev = self._kmer_count_dev + batch_kmers
+        table = table.insert_kmers(kmers.reshape(-1))
+        self.stats.n_reads_ingested += n_rows
+        self.stats.n_bases_ingested += n_valid_bases
+        return table
+
+    def _ingest_seqs(self, seqs: list, table):
+        """Encode a group of reads (bytes or pre-encoded arrays) and
+        insert their canonical k-mers into `table` (returned updated)."""
+        raw = [s for s in seqs if isinstance(s, (bytes, bytearray))]
+        for batch in _width_batches(raw):
+            table = self._ingest_codes_array(_encode_batch(batch), table)
+        for item in seqs:
+            if not isinstance(item, (bytes, bytearray)):
+                table = self._ingest_codes_array(item, table)
+        return table
+
+    # -- consolidate ---------------------------------------------------------
+
+    def consolidate(self) -> list[np.ndarray] | None:
+        """Finish ingestion; returns per-chunk histogram snapshots (or None
+        when chunks == 0). Asserts the reference's count-conservation
+        invariants."""
+        histo_vecs: list[np.ndarray] | None = None
+        if self._buffering:
+            histo_vecs = []
+            for chunk_id in range(max(self.n_chunks, 1)):
+                self._flush_pending(chunk_id)
+                if self._chunk_tables[chunk_id] is not None:
+                    self.table = self.table.merge_from(
+                        self._chunk_tables[chunk_id]
+                    )
+                    self._chunk_tables[chunk_id] = None  # free device memory
+                histo_vecs.append(self.table.histogram(self.histo_max))
+        else:
+            if self._stream_buffer:
+                self.table = self._ingest_seqs(self._stream_buffer, self.table)
+                self._stream_buffer = []
+            if self.n_chunks > 0:  # chunks == 1: one snapshot
+                histo_vecs = [self.table.histogram(self.histo_max)]
+
+        # materialize the device-side k-mer total (one sync per run)
+        if self._kmer_count_dev is not None:
+            self.stats.n_kmers_ingested = int(self._kmer_count_dev)
+        n_hashed = self.table.n_total()
+        if n_hashed != self.stats.n_kmers_ingested:
+            raise AssertionError(
+                f"The total count of hashed kmers ({n_hashed}) does not equal "
+                f"the number of ingested kmers ({self.stats.n_kmers_ingested})"
+            )
+        if histo_vecs is not None:
+            final = histo_vecs[-1]
+            n_unique_histo = int(np.sum(final[1:]))
+            n_unique_table = self.table.n_unique()
+            if n_unique_histo != n_unique_table:
+                raise AssertionError(
+                    f"The total count of unique kmers in the histogram "
+                    f"({n_unique_histo}) does not equal the total count of "
+                    f"hashed kmers ({n_unique_table})"
+                )
+        return histo_vecs
+
+    def n_singletons(self, histo_vecs: list[np.ndarray] | None) -> int | None:
+        if not histo_vecs:
+            return None
+        return int(histo_vecs[-1][1])
+
+
+def _width_batches(seqs: Iterable[bytes]) -> Iterator[list[bytes]]:
+    """Split reads into device batches bucketed by padded width."""
+    buckets: dict[int, list[bytes]] = {}
+    for seq in seqs:
+        w = max(WIDTH_BUCKET, -(-len(seq) // WIDTH_BUCKET) * WIDTH_BUCKET)
+        b = buckets.setdefault(w, [])
+        b.append(seq)
+        if len(b) >= DEVICE_BATCH_READS:
+            yield b
+            buckets[w] = []
+    for b in buckets.values():
+        if b:
+            yield b
+
+
+def _encode_batch(seqs: list[bytes]) -> np.ndarray:
+    width = max(WIDTH_BUCKET, -(-max(len(s) for s in seqs) // WIDTH_BUCKET) * WIDTH_BUCKET)
+    out = np.full((len(seqs), width), encoding.CODE_PAD, dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        codes = encoding.ascii_to_codes(s)
+        out[i, : len(codes)] = codes
+    return out
