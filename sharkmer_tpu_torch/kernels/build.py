@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -57,6 +58,17 @@ def _build(name: str) -> str:
         )
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names) -> None:
+    """Compile the named sources concurrently (one ``nvcc`` each), then
+    load them. Raises on the first failed build."""
+    names = list(names)
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        for future in [pool.submit(_build, name) for name in names]:
+            future.result()
+    for name in names:
+        load(name)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,24 +8,30 @@ The count path is built from sorts and scans, as in the JAX package:
   sorted and run-length encoded. The first drain into an empty store
   is *ghosted*: keys stay the full sorted array and each run's total
   sits at its first row, 0 on its duplicates ("ghost rows"), from the
-  ``run_ends`` kernel. Every later drain compacts: ``run_starts``
-  kernel, run totals at run ends, then one packed (or key/count) sort
-  moves the survivors to the front.
+  ``run_ends`` kernel. Every later drain compacts after the
+  ``run_starts`` kernel (run totals at run ends). On the card, at the
+  JAX package's v2 widths, that is drain v2: a row-wise packed sort of
+  ``[R, ROW_W]`` rows, ghost padding of each row to a multiple of
+  ``GHOST_Q``, and the ``stitch_rows`` kernel. Elsewhere (the CPU, small
+  widths) one packed (or key/count) sort moves the survivors to the
+  front (drain v1).
 * **staged run and partitioned master**: drained runs merge pairwise
   into a staged run; the staged run folds into the master, a list of
   disjoint key-range partitions, each a sorted sentinel-padded run of
   at most ``max_agg // 2`` keys, which split in half when they
   outgrow it. Merges are concatenate + sort + segmented sum, with
   exact u32 saturation.
-* **queries**: histogram, totals, binary-search lookups, primer scans
-  and the filtered host export, per partition.
+* **queries**: histogram, totals, binary-search lookups, primer scans,
+  the sPCR ``reach`` closure (``ops/reach.py``, on per-partition bucket
+  LUTs and the ``probe_rows`` kernel) and the filtered host export, per
+  partition.
 
 Keys and counts are int64 tensors on ``device`` (``ops/keys.py``).
 Ghost rows (count 0, duplicating the live row before them) are
 invisible to every query: searchsorted-left lands on the live row, the
-histogram drops bin 0, scans and exports drop count-0 rows, and merges
-collapse them. Not ported here: drain v2 with its ``stitch_rows``
-compaction, the reach sidecars (LUT, probe plane) and ``reach``.
+histogram drops bin 0, scans and exports drop count-0 rows, merges
+collapse them, and the sPCR index de-ghosts the partitions before it
+builds the LUTs.
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ import numpy as np
 import torch
 
 from ..kernels.run_scan import run_ends, run_starts
+from ..kernels.stitch import stitch_rows
+from . import reach as reach_mod
 from .encoding import canonical_kmers
 from .histogram import histogram as _histogram
 from .histogram import revcomp
 from .keys import (
+    BIAS,
     COUNT_MAX,
     SENTINEL,
     counts_to_device,
@@ -55,6 +64,18 @@ from .scan import panel_scan, range_scan_part, rc_index
 # Raw-buffer append granularity (elements): an append fills whole
 # tiles, the tail of the last one with sentinels.
 TILE = 1 << 18
+
+# Drain v2 row geometry (the JAX package's): the compaction sorts
+# [R, ROW_W] rows, pads each row's survivors with zero-count ghosts of
+# its last key to a multiple of GHOST_Q, and stitches the rows. The
+# ghosts are invisible to every query and cost at most R * GHOST_Q / 2
+# slots; keeping them makes the drain's output equal the JAX v2 drain's
+# element for element.
+ROW_W = 1 << 16
+GHOST_Q = 1024
+# Widths the JAX package drains with v2 are multiples of its Pallas
+# run-scan tile (256 x 512 elements).
+_V2_TILE = 1 << 17
 
 
 def _default_max_agg(device) -> int:
@@ -160,6 +181,59 @@ def _aggregate_ingest(kmers, count_bits: int):
     return out_k, out_c, n_unique
 
 
+def _aggregate_ingest_v2(kmers, count_bits: int):
+    """Drain v2 (``_aggregate_ingest_v2_impl``): the drain of
+    ``_aggregate_ingest`` with a row-wise compaction and ghost padding.
+    ``kmers``' width is a multiple of ROW_W and ``count_bits >= 20``.
+
+    Returns (keys, counts, n_padded, n_real): the occupied prefix is
+    ``n_padded`` rows, live rows followed by their zero-count ghosts,
+    of which ``n_real`` carry counts. A run total that does not fit the
+    packed count field (one key filling ``2^count_bits`` buffer slots)
+    takes the exact key/count compaction instead, without ghosts (the
+    JAX ``lax.cond`` is a host ``if`` on one scalar here)."""
+    n = kmers.shape[0]
+    sk = torch.sort(kmers).values
+    _first, last = _first_last(sk)
+    pos = torch.arange(n, dtype=torch.int32, device=sk.device)
+    run_total = (pos - run_starts(sk) + 1).to(torch.int64)
+    keep = last & (sk != SENTINEL)
+    cap = (1 << count_bits) - 1
+    if int(torch.where(keep, run_total, 0).max()) >= cap:
+        out_k, out_c = _compact(sk, run_total, keep, 0)
+        n_unique = int(keep.sum())
+        return out_k, out_c, n_unique, n_unique
+    # biased packed words sort signed in the unsigned word order; rows
+    # not kept are the biased all-ones sentinel (INT64_MAX), last
+    words = pack(sk, run_total, count_bits, keep)
+    del sk, run_total, keep
+    rows = torch.sort(words.view(-1, ROW_W), dim=1).values
+    del words
+    cnt = (rows != SENTINEL).sum(dim=1, dtype=torch.int32)
+    cntq = (cnt + (GHOST_Q - 1)) & ~(GHOST_Q - 1)
+    last_live = rows.gather(
+        1, torch.clamp(cnt - 1, min=0).to(torch.int64)[:, None])[:, 0]
+    # the ghost is the row's last key with count 0: the JAX package's
+    # (last_live >> cb) << cb on the unbiased word, biased again
+    ghost = (((last_live ^ BIAS) >> count_bits) << count_bits) ^ BIAS
+    posw = torch.arange(ROW_W, dtype=torch.int32, device=rows.device)[None, :]
+    rows = torch.where((posw >= cnt[:, None]) & (posw < cntq[:, None]),
+                       ghost[:, None], rows)
+    offs = (torch.cumsum(cntq, 0, dtype=torch.int32) - cntq).contiguous()
+    flat = stitch_rows(rows, offs, SENTINEL)
+    del rows
+    out_k, out_c = unpack(flat, count_bits)
+    n_padded, n_real = torch.stack([cntq.sum(), cnt.sum()]).tolist()
+    return out_k, out_c, n_padded, n_real
+
+
+def _drain_v2_wanted(width: int, count_bits: int, device) -> bool:
+    """The JAX package's drain-v2 rule, on the card only: a width of
+    whole run-scan tiles and whole rows, and a packable k."""
+    return (torch.device(device).type == "cuda" and width % _V2_TILE == 0
+            and count_bits >= 20 and width >= ROW_W and width % ROW_W == 0)
+
+
 def _aggregate_ingest_ghosted(kmers):
     """Fresh drain into an empty store: a sorted ghosted run, no
     compaction (``_aggregate_ingest_ghosted_impl``). Keys stay the full
@@ -234,6 +308,13 @@ class _Part:
         return self.n_real
 
 
+@dataclass(frozen=True)
+class _SpcrIndex:
+    sidecars: list  # reach_mod.PartSidecar per partition
+    rc_indexes: list  # (rc_sorted, rc_order) per partition
+    bases: tuple  # global row id of each partition's row 0
+
+
 @dataclass
 class SortedKmerStore:
     """Raw-buffered ingest + partitioned sorted master runs on ``device``."""
@@ -249,7 +330,7 @@ class SortedKmerStore:
     # master only when the stage fills or a query needs the counts.
     # (keys, counts, n_occupied) or None.
     _staged: tuple | None = None
-    # (partition identities, rc index per partition) for the primer scans
+    # (partition identities, _SpcrIndex) for reach and the primer scans
     _spcr_cache: tuple | None = None
 
     def __post_init__(self):
@@ -364,12 +445,16 @@ class SortedKmerStore:
         buf = self._buf[:width]
         self._buf = None
         self._fill = 0
+        count_bits = self._count_bits()
+        # nu: occupied rows, ghosts included; the run keeps that width
         if not self.parts and self._staged is None:
             # first drain into an empty store: the ghosted run seeds
             # partitions as is (no compaction sort)
             uk, uc, nu, _n_real = _aggregate_ingest_ghosted(buf)
+        elif _drain_v2_wanted(width, count_bits, self.device):
+            uk, uc, nu, _n_real = _aggregate_ingest_v2(buf, count_bits)
         else:
-            uk, uc, nu = _aggregate_ingest(buf, self._count_bits())
+            uk, uc, nu = _aggregate_ingest(buf, count_bits)
         del buf
         if nu == 0:
             return
@@ -541,12 +626,15 @@ class SortedKmerStore:
             return 0
         return max(int(p.counts.max()) for p in s.parts)
 
-    # -- sPCR support: primer range scans ---------------------------------------
+    # -- sPCR support: reach closure and primer range scans ---------------------
 
-    def _spcr_index(self) -> list:
-        """The revcomp-sorted index of each partition, cached until the
-        partition list changes (partitions are replaced, never mutated).
-        Partitions still holding ghost rows are de-ghosted first."""
+    def _spcr_index(self) -> _SpcrIndex:
+        """Per-partition sPCR structures, cached until the partition list
+        changes (partitions are replaced, never mutated): the bucket LUT
+        sidecars of ``reach``, the revcomp-sorted indexes of the primer
+        scans, and each partition's global row-id base. Partitions still
+        holding ghost rows are de-ghosted first: a ghost run would
+        inflate its bucket far past the LUT's 32-row sizing."""
         s = self._flushed()
         token = tuple(id(p) for p in s.parts)
         if self._spcr_cache is not None and self._spcr_cache[0] == token:
@@ -555,15 +643,41 @@ class SortedKmerStore:
             if p.n > p.real():
                 dk, dc, kept = _filter_compact(p.kmers, p.counts, 1)
                 s.parts[i] = _Part(dk, dc, kept, p.first_key, n_real=kept)
-        rc_indexes = [rc_index(p.kmers, s.k) for p in s.parts]
+        bases, off = [], 0
+        for p in s.parts:
+            bases.append(off)
+            off += p.kmers.shape[0]
+        index = _SpcrIndex(
+            sidecars=[reach_mod.build_sidecar(p.kmers, p.counts, s.k)
+                      for p in s.parts],
+            rc_indexes=[rc_index(p.kmers, s.k) for p in s.parts],
+            bases=tuple(bases),
+        )
         # the token is taken after de-ghosting: the partitions changed
-        self._spcr_cache = (tuple(id(p) for p in s.parts), rc_indexes)
-        return rc_indexes
+        self._spcr_cache = (tuple(id(p) for p in s.parts), index)
+        return index
 
     def prepare_spcr(self) -> None:
-        """Build the sPCR index up front (otherwise the first scan does)."""
+        """Build the sPCR index up front (otherwise the first scan or
+        closure does)."""
         if self._flushed().parts:
             self._spcr_index()
+
+    def reach(self, roots, min_count: int, depth: int | None = None,
+              pre=None):
+        """Depth-capped de Bruijn closure of ``roots`` over this table
+        (``ops/reach.py``). ``pre``: already-covered interior keys that
+        warm-start the visited set (re-prefetching sessions). Returns a
+        ``ReachResult``, or None on overflow."""
+        s = self._flushed()
+        if not s.parts:
+            return reach_mod.ReachResult(
+                np.zeros(0, np.uint64), np.zeros(0, np.uint32), True, 0)
+        index = self._spcr_index()
+        return reach_mod.reach(
+            index.sidecars, index.bases, roots, min_count, s.k,
+            depth=depth or reach_mod.DEPTH, pre=pre,
+        )
 
     def prefix_scan_many(self, requests, max_out: int = 1 << 14):
         """Every primer scan of a panel in one scan per partition.
@@ -578,7 +692,7 @@ class SortedKmerStore:
         empty = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
         if not s.parts:
             return [empty for _ in requests]
-        rc_indexes = self._spcr_index()
+        rc_indexes = self._spcr_index().rc_indexes
 
         n_oligos = 0
         for oligos, olen in requests:
@@ -647,7 +761,8 @@ class SortedKmerStore:
         oligos = np.asarray(oligos, dtype=np.uint64)
         all_k, all_c = [np.zeros(0, np.uint64)], [np.zeros(0, np.uint32)]
         if s.parts:
-            for p, (rc_sorted, rc_order) in zip(s.parts, self._spcr_index()):
+            for p, (rc_sorted, rc_order) in zip(
+                    s.parts, self._spcr_index().rc_indexes):
                 kk, cc = range_scan_part(
                     p.kmers, p.counts, rc_sorted, rc_order, p.n,
                     oligos, oligo_len, s.k, max_out=max_out,

@@ -72,6 +72,32 @@ def test_cli_outputs_identical_small_drain_budget(tmp_path, monkeypatch,
     _assert_same_outputs(jax_out, torch_out, expect_histo=True)
 
 
+@pytest.mark.parametrize("mirror", ["auto", "full"])
+def test_cli_mirror_modes_identical(tmp_path, monkeypatch, fastq_18s, mirror):
+    """``--mirror auto`` resolves to the reach prefetch (the port's store
+    has ``reach``) and never builds the host mirror; ``--mirror full``
+    serves the walk from the mirror. Both match the JAX CLI byte for
+    byte."""
+    from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
+
+    monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
+    calls = {"reach": 0, "to_sorted_arrays": 0}
+    for name in calls:
+        original = getattr(SortedKmerStore, name)
+
+        def counted(self, *a, _name=name, _original=original, **kw):
+            calls[_name] += 1
+            return _original(self, *a, **kw)
+
+        monkeypatch.setattr(SortedKmerStore, name, counted)
+    jax_out, torch_out = _run_both(tmp_path, fastq_18s, ["--mirror", mirror])
+    _assert_same_outputs(jax_out, torch_out, expect_histo=False)
+    if mirror == "auto":
+        assert calls["reach"] > 3 and calls["to_sorted_arrays"] == 0
+    else:
+        assert calls["reach"] == 0 and calls["to_sorted_arrays"] == 1
+
+
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, fastq_18s):
     monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
     out = str(tmp_path / "o")
