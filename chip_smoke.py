@@ -12,12 +12,20 @@ Phases, each printed on its own lines; every check raises on failure:
    process (``tools/synth.py``, seed 0), to be ready by phase 4;
 2. build every CUDA source in ``sharkmer_tpu_torch/csrc`` (one nvcc
    each, all at once, sm_90a);
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: ``run_ends``/``run_starts`` on 2^27 sorted int64
-   keys (the drain width), ``probe_rows`` on a 2^26-row partition with
-   its LUT at 128 and 2048 candidates (a narrow and a wide closure
-   level), ``stitch_rows`` on [2048, 65536] rows (the 2^27 drain v2):
-   exact equality, and median CUDA-event times;
+3. the card's dependent-load latency through L2 and from DRAM
+   (``csrc/chase.cu``, a pointer chase), for the latency bounds; each
+   kernel against its plain PyTorch version on the card, at the main
+   path's shapes: ``run_ends``/``run_starts`` on 2^27 sorted int64 keys
+   (the drain width), ``stitch_rows`` on [2048, 65536] rows (the 2^27
+   drain v2): exact equality, and median CUDA-event times; then
+   ``reach_closure`` against the plain closure loop on a 2^26-row table
+   that holds every 19-mer of a random genome plus filler keys, as one
+   partition and cut into 21 key-range partitions: a narrow and a wide
+   call from roots on the genome at depth 2048 and f_cap 256, and a
+   warm-started call whose ``pre`` rows come from ``probe_rows`` (held
+   to its plain version at the warm start's 4096 keys): equal ``n_vis``,
+   ``iters``, ``overflow``, ``done``, sorted log and boundary set, and
+   median ms per call;
 4. the main path: the port's CLI (``sharkmer_tpu_torch.main.main``,
    which is what ``python -m sharkmer_tpu_torch`` runs) in this process
    on the first 1M reads, ``--mirror auto`` (the device reach closure),
@@ -34,8 +42,12 @@ Phases, each printed on its own lines; every check raises on failure:
    first drain, then drain v2 at the full 2^27 width.
 
 Each kernel's launch count is reset just before each main-path run and
-read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` must
-launch in phases 4 and 5, ``stitch_rows`` in phases 5 and 7. A logged
+read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
+warm starts) must launch in phases 4 and 5, ``stitch_rows`` in phases 5
+and 7, ``reach_closure`` in phases 4, 5 and 7 at least once per closure
+call (the run's ``closures`` sPCR phase), where ``probe_rows`` may launch
+no more often than that, the plain closure loop must never run and the
+host mirror must not be built. A logged
 ``sPCR device-index build failed`` or ``reach warmup failed`` (the copied
 ``pcr/counts.py`` swallows those errors and falls back to the host
 mirror) fails the run. The last two lines of standard output are the
@@ -65,6 +77,10 @@ FASTQ = os.path.join(HERE, "benchmarks", "work", "synth",
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 KERNEL_N = 1 << 27
 PART_ROWS = 1 << 26
+GENOME_BASES = 1 << 20
+CLOSURE_PARTS = 21
+CLOSURE_MC = 2  # the closures' count floor
+HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
 STITCH_SHAPE = (2048, 1 << 16)
 K = 19
 INT64_MAX = (1 << 63) - 1
@@ -81,6 +97,9 @@ KERNELS = {
                    "sharkmer_tpu/ops/pallas_kernels.py:395"),
     "stitch_rows": ("sharkmer_tpu_torch/csrc/stitch_rows.cu",
                     "sharkmer_tpu/ops/pallas_kernels.py:504"),
+    # the JAX closure loop (ops/reach.py _closure_run) around probe_rows
+    "reach_closure": ("sharkmer_tpu_torch/csrc/reach_closure.cu",
+                      "sharkmer_tpu/ops/pallas_kernels.py:395"),
 }
 
 
@@ -120,39 +139,6 @@ def sorted_test_keys(np, n: int):
     return np.concatenate([keys, np.full(tail, INT64_MAX, np.int64)])
 
 
-def probe_partition(np, n_rows: int, k: int):
-    """A de-ghosted partition from default_rng(1): 3/4 of ``n_rows``
-    distinct sorted k-mer keys (random gaps, so no sort), counts in
-    [1, 40), sentinel tail."""
-    rng = np.random.default_rng(1)
-    n_real = n_rows * 3 // 4
-    gap = (1 << (2 * k)) // n_real
-    keys = np.full(n_rows, INT64_MAX, np.int64)
-    keys[:n_real] = np.cumsum(rng.integers(1, 2 * gap - 64, size=n_real))
-    counts = np.zeros(n_rows, np.int64)
-    counts[:n_real] = rng.integers(1, 40, size=n_real)
-    return keys, counts, n_real
-
-
-def probe_candidates(np, keys, counts, n_real: int, n_cand: int, mc: int,
-                     seed: int):
-    """Candidates: 40% keys at or above ``mc``, 20% keys below it, 25%
-    random keys (almost all absent), 15% the sentinel."""
-    rng = np.random.default_rng(seed)
-    rows = rng.integers(0, n_real, size=8 * n_cand)
-    high = rows[counts[rows] >= mc][: n_cand * 2 // 5]
-    low = rows[counts[rows] < mc][: n_cand // 5]
-    n_rand = n_cand * 1 // 4
-    cand = np.concatenate([
-        keys[high], keys[low],
-        rng.integers(0, int(keys[n_real - 1]), size=n_rand),
-    ])
-    cand = np.concatenate(
-        [cand, np.full(n_cand - cand.size, INT64_MAX, np.int64)])
-    rng.shuffle(cand)
-    return cand
-
-
 def median_ms(torch, fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -189,6 +175,288 @@ def compare(torch, name: str, kernel, plain, reps: int, card: str,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def byte_bound(n_bytes: int) -> dict:
+    """The least time for ``n_bytes`` at the card's memory rate; no
+    single PyTorch call computes any of these functions."""
+    return {"bound_ms": n_bytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
+            "library_ms": None, "bytes": n_bytes}
+
+
+def load_latency(torch) -> dict:
+    """ns per dependent load (``csrc/chase.cu``) along a random ring of
+    128 B lines: 2^15 lines (4 MB) walked once before the timed walks, so
+    they hit L2; 2^23 lines (1 GB, the closure table's keys and counts),
+    cold, so the loads go to DRAM. Median of three timed walks each."""
+    import ctypes
+
+    from sharkmer_tpu_torch.kernels import build
+
+    lib = build.load("chase")
+    lib.shk_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p]
+    lib.shk_chase.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    steps = 1 << 16
+    result = {}
+    for where, n_lines in (("l2_ns", 1 << 15), ("dram_ns", 1 << 23)):
+        ring = 32 * torch.randperm(n_lines, device="cuda", generator=gen)
+        nxt = torch.zeros(32 * n_lines, dtype=torch.int32, device="cuda")
+        nxt[ring] = torch.roll(ring, -1).to(torch.int32)
+        start = int(ring[0])
+        del ring
+
+        def walk(n):
+            rc = lib.shk_chase(nxt.data_ptr(), start, n, out.data_ptr(),
+                               stream)
+            require(rc == 0, f"chase: CUDA launch failed (cudaError {rc})")
+
+        if where == "l2_ns":
+            walk(n_lines)  # load the ring into L2
+        times = []
+        for _ in range(3):
+            times.append(median_ms(torch, lambda: walk(steps), 1))
+            if where == "dram_ns":  # a fresh stretch of the ring each time
+                start = int(out[0])
+        result[where] = statistics.median(times) * 1e6 / steps
+        del nxt
+    torch.cuda.empty_cache()
+    return result
+
+
+def chain_ms(latency: dict, levels: int) -> float:
+    """The least time of ``levels`` dependent probe levels: a level's
+    candidates come from the hits of the one before, and each probe is
+    a LUT load (at best an L2 hit), then its bucket rows (from DRAM: the
+    table is far past L2), then the claim of its row (an L2 atomic). The
+    frontier itself could stay on chip."""
+    return levels * (2 * latency["l2_ns"] + latency["dram_ns"]) / 1e6
+
+
+def bucket_bytes(torch, side, cand) -> int:
+    """Bytes of one partition's LUT entries and bucket rows (8 B key and
+    8 B count) that probing ``cand`` reads, each read once."""
+    cand = cand[cand != INT64_MAX]
+    if not cand.numel():
+        return 0
+    b = torch.unique(torch.clamp(cand >> side.shift, max=side.lut.shape[0] - 2))
+    n_lut = torch.unique(torch.cat([b, b + 1])).numel()
+    rows = int((side.lut[b + 1] - side.lut[b]).to(torch.int64).sum())
+    return 4 * n_lut + 16 * rows
+
+
+def routed_bytes(torch, table, cand) -> int:
+    """``bucket_bytes`` of each candidate in the partition its key range
+    routes it to."""
+    from sharkmer_tpu_torch.kernels import probe
+
+    part = probe.route_plain(table.first_keys, cand)
+    return sum(bucket_bytes(torch, side, cand[part == i])
+               for i, side in enumerate(table.sidecars))
+
+
+def closure_table(np, torch, n_rows: int, k: int):
+    """A table of ``n_rows`` rows from default_rng(4): every k-mer of a
+    random genome of GENOME_BASES bases plus random filler keys, 3/4 of
+    the rows in all, canonical, sorted, sentinel tail. Counts in [1, 40),
+    the genome's at or above CLOSURE_MC but for one in 10^4 (a break in
+    the walk). Returns (keys, counts, n_real, the genome's k-mers)."""
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, size=GENOME_BASES)
+    n_k = GENOME_BASES - k + 1
+    fwd = np.zeros(n_k, np.int64)
+    for j in range(k):
+        fwd = (fwd << 2) | genome[j : j + n_k]
+    filler = rng.integers(0, 1 << (2 * k), size=n_rows * 3 // 4 - n_k)
+    raw = torch.from_numpy(np.concatenate([fwd, filler])).cuda()
+    uniq = torch.unique(torch.minimum(raw, revcomp(raw, k)))
+    n_real = uniq.shape[0]
+    counts = torch.zeros(n_rows, dtype=torch.int64, device="cuda")
+    counts[:n_real] = torch.from_numpy(rng.integers(1, 40, size=n_real)).cuda()
+    on_genome = torch.from_numpy(fwd).cuda()
+    on_genome = torch.searchsorted(
+        uniq, torch.minimum(on_genome, revcomp(on_genome, k)))
+    g_counts = rng.integers(CLOSURE_MC, 40, size=n_k)
+    g_counts[rng.random(n_k) < 1e-4] = 1
+    counts[on_genome] = torch.from_numpy(g_counts).cuda()
+    keys = torch.full((n_rows,), INT64_MAX, dtype=torch.int64, device="cuda")
+    keys[:n_real] = uniq
+    return keys, counts, n_real, fwd
+
+
+def cut_table(torch, keys, counts, n_real: int, n_parts: int, k: int):
+    """The table cut into ``n_parts`` key-range partitions of equal real
+    rows, each padded with sentinels to a power-of-two width as the
+    store's partitions are."""
+    from sharkmer_tpu_torch.kernels import probe
+    from sharkmer_tpu_torch.ops import reach
+
+    sidecars, bases, off = [], [], 0
+    for i in range(n_parts):
+        a, b = n_real * i // n_parts, n_real * (i + 1) // n_parts
+        width = 1 << (b - a).bit_length()
+        pk = torch.full((width,), INT64_MAX, dtype=torch.int64, device="cuda")
+        pc = torch.zeros(width, dtype=torch.int64, device="cuda")
+        pk[: b - a], pc[: b - a] = keys[a:b], counts[a:b]
+        first = 0 if i == 0 else int(keys[a])
+        sidecars.append(reach.build_sidecar(pk, pc, k, first))
+        bases.append(off)
+        off += width
+    return probe.PartTable(sidecars, bases)
+
+
+def closure_bytes(torch, table, c0, pre_ids, log_sorted, state, boundary,
+                  k: int) -> int:
+    """The least bytes of one closure call: c0 and pre_ids read once; the
+    LUT entries and bucket rows of every candidate it probed read once
+    (the roots and the 8 neighbours of every visited key but the
+    boundary's, which were never expanded); the log, boundary and state
+    written once."""
+    from sharkmer_tpu_torch.ops import reach
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    n_vis, _it, _overflow, done = state
+    keys, _ = reach._gather_rows(table, log_sorted[:n_vis])
+    if not done:
+        keys = keys[~torch.isin(keys, boundary)]
+    kmask, top = (1 << (2 * k)) - 1, 2 * (k - 1)
+    base = torch.arange(4, dtype=torch.int64, device=keys.device)[None, :]
+    f, r = keys[:, None], revcomp(keys, k)[:, None]
+    cand = torch.cat([((f << 2) | base) & kmask, (base << top) | (f >> 2)], 1)
+    cand_rc = torch.cat([((3 - base) << top) | (r >> 2),
+                         ((r << 2) | (3 - base)) & kmask], 1)
+    roots = c0[c0 != INT64_MAX]
+    probed = torch.cat([torch.minimum(cand, cand_rc).reshape(-1),
+                        torch.minimum(roots, revcomp(roots, k))])
+    n_pre = 0 if pre_ids is None else pre_ids.numel()
+    return (8 * c0.numel() + 4 * n_pre + 48 * len(table.sidecars)
+            + routed_bytes(torch, table, probed) + 4 * log_sorted.numel()
+            + 8 * boundary.numel() + 32)
+
+
+def closure_phase(torch, np, card: str, latency: dict) -> dict:
+    """``reach_closure`` against ``closure_plain`` on a 2^26-row table,
+    as one partition and cut into CLOSURE_PARTS; ``probe_rows`` against
+    ``probe_rows_plain`` at the warm start's PRE_W keys. Each with its
+    byte bound and its latency bound (``chain_ms``)."""
+    from sharkmer_tpu_torch.kernels import closure, probe
+    from sharkmer_tpu_torch.ops import reach
+    from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
+
+    start = time.monotonic()
+    keys, counts, n_real, fwd = closure_table(np, torch, PART_ROWS, K)
+    tables = {"1 partition": probe.PartTable(
+                  [reach.build_sidecar(keys, counts, K)], [0]),
+              f"{CLOSURE_PARTS} partitions": cut_table(
+                  torch, keys, counts, n_real, CLOSURE_PARTS, K)}
+    torch.cuda.synchronize()
+    print(f"closure table: {PART_ROWS} rows, {n_real} keys, "
+          f"{GENOME_BASES}-base genome; built in "
+          f"{time.monotonic() - start:.3f} s", flush=True)
+    depth, f_cap, f_narrow = reach.DEPTH, reach.F_CAP, reach.F_NARROW
+    n_k = fwd.shape[0]
+
+    def c0_of(roots):
+        c0 = np.full(8 * f_cap, reach.EMPTY, np.uint64)
+        roots = np.unique(np.asarray(roots, np.uint64))
+        c0[: len(roots)] = roots
+        return keys_to_device(c0, "cuda")
+
+    def run(table, c0, pre_ids, fn):
+        return fn(table, c0, pre_ids, CLOSURE_MC, K, depth, f_cap, f_narrow)
+
+    def event_ms(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    def check(label, table, c0, pre_ids, plain_twice):
+        """Kernel against plain on one call, then CUDA-event times: the
+        plain run that checked, 10 kernel runs, and a second plain run
+        when ``plain_twice`` (plain, kernel x 10, plain)."""
+        plain_ms, want = event_ms(
+            lambda: run(table, c0, pre_ids, closure.closure_plain))
+        got = run(table, c0, pre_ids, closure.reach_closure)
+        gs = closure.unpack_state(got[2])
+        ws = closure.unpack_state(want[2])
+        require(gs == ws, f"reach_closure {label}: [n_vis, iters, overflow, "
+                f"done] {gs} vs plain {ws}")
+        require(not gs[2] and gs[1] > depth // 2,
+                f"reach_closure {label}: overflow or a short walk {gs}")
+        g_log, w_log = (torch.sort(x[0]).values for x in (got, want))
+        err = int((g_log.to(torch.int64) - w_log.to(torch.int64)).abs().max())
+        require(err == 0 and torch.equal(g_log, w_log),
+                f"reach_closure {label}: sorted logs differ")
+        g_b, w_b = (torch.unique(x[1][x[1] != INT64_MAX]) for x in (got, want))
+        require(torch.equal(g_b, w_b),
+                f"reach_closure {label}: boundary sets differ")
+        ms = statistics.median(
+            event_ms(lambda: run(table, c0, pre_ids, closure.reach_closure))[0]
+            for _ in range(10))
+        if plain_twice:
+            plain_ms = (plain_ms + event_ms(lambda: run(
+                table, c0, pre_ids, closure.closure_plain))[0]) / 2
+        # levels that probed: up to 3 narrow levels after `done` ran on
+        # an empty frontier
+        levels = gs[1] - 3 * gs[3]
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "n_vis": gs[0], "iters": gs[1], "done": gs[3],
+                  "boundary": int(g_b.numel()),
+                  **byte_bound(closure_bytes(torch, table, c0, pre_ids, g_log,
+                                             gs, got[1], K)),
+                  "latency_bound_ms": chain_ms(latency, levels),
+                  "latency_levels": levels}
+        print(f"reach_closure: exact on {label}: {result}; median "
+              f"{ms:.4f} ms a call vs {plain_ms:.4f} ms plain on {card}",
+              flush=True)
+        return result, got
+
+    record = {}
+    for name, table in tables.items():
+        narrow = c0_of(fwd[[n_k // 4, 3 * n_k // 4]])
+        res, got = check(f"{name}, 2 roots (narrow)", table, narrow, None,
+                         name == "1 partition")
+        record[f"narrow, {name}"] = res
+        wide = c0_of(fwd[np.linspace(1000, n_k - 1000, 48).astype(int)])
+        record[f"wide, {name}"] = check(f"{name}, 48 roots (wide)", table,
+                                        wide, None, False)[0]
+        # a re-prefetch from the narrow call's boundary, warm-started with
+        # its interior, as pcr/prefetch.py does
+        log_sorted = torch.sort(got[0]).values
+        visited, _ = reach._gather_rows(table, log_sorted[: res["n_vis"]])
+        bound = keys_to_numpy(got[1])
+        bound = bound[bound != reach.EMPTY]
+        pre = np.setdiff1d(keys_to_numpy(visited), bound)
+        pre_t = keys_to_device(reach._pad_pre(pre, roots=bound), "cuda")
+        args = (table, pre_t, CLOSURE_MC)
+        result = compare(torch, "probe_rows", lambda: probe.probe_rows(*args),
+                         lambda: probe.probe_rows_plain(*args), 20, card,
+                         f"{pre_t.numel()} warm-start keys, {name}")
+        # every warm-start key was visited, so each one hits
+        pre_ids = probe.probe_rows(*args)
+        n_pre = int((pre_t != INT64_MAX).sum())
+        require(int((pre_ids != probe.INF32).sum()) == n_pre > 0,
+                f"probe_rows: not every one of {n_pre} warm-start keys hit")
+        result.update(byte_bound(12 * pre_t.numel()
+                                 + 48 * len(table.sidecars)
+                                 + routed_bytes(torch, table, pre_t)))
+        # one level of probes, all in parallel: the key, the LUT, the
+        # bucket rows
+        result["latency_bound_ms"] = chain_ms(latency, 1)
+        record[f"probe_rows, {name}"] = result
+        record[f"pre, {name}"] = check(f"{name}, warm start", table,
+                                       c0_of(bound), pre_ids, False)[0]
+    del tables, keys, counts
+    torch.cuda.empty_cache()
+    return record
+
+
 class _RunLog(logging.Handler):
     """Keeps the CLI's stage-wall and sPCR-phase lines of each run and
     every fallback warning of the sPCR index."""
@@ -210,6 +478,15 @@ def spcr_wall(line: str) -> float:
     return float(line.split("sPCR ")[1].split(" s")[0])
 
 
+def closure_calls(lines) -> int:
+    """The closure calls of a run, from its ``closures <wall>s/<calls>``
+    sPCR phase (none under --mirror full)."""
+    for line in lines:
+        if "sPCR phases:" in line and " closures " in line:
+            return int(line.split(" closures ")[1].split("/")[1].split(",")[0])
+    return 0
+
+
 def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     """One CLI run of the cnidaria cell at ``n_reads``; returns (the
     kernels' launch counts of this run, its stage-walls line)."""
@@ -217,7 +494,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
 
     from sharkmer_tpu_torch.main import main
 
-    torch, kernels, run_log, mirror_builds = ctx
+    torch, kernels, run_log, mirror_builds, plain_closures = ctx
     sample = f"synthetic-seed0_{n_reads}"
     oracle = os.path.join(ORACLES, str(n_reads))
     out = os.path.join(OUT_DIR, label)
@@ -227,6 +504,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     torch.cuda.reset_peak_memory_stats()
     n_lines = len(run_log.lines)
     mirror_builds.clear()
+    plain_closures.clear()
     for fn in kernels.values():
         fn.launches = 0
     start = time.monotonic()
@@ -236,7 +514,12 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     require(rc == 0, f"{label}: the CLI exited {rc}")
     require(not run_log.fallbacks,
             f"{label}: the sPCR index fell back: {run_log.fallbacks}")
+    require(not plain_closures,
+            f"{label}: {len(plain_closures)} closures ran the torch loop")
+    require("--mirror" in extra or not mirror_builds,
+            f"{label}: the host mirror was built under --mirror auto")
     lines = run_log.lines[n_lines:]
+    counts["closure_calls"] = closure_calls(lines)
     walls = next(line for line in lines if "stage walls:" in line)
     print(f"{label}: CLI wall {wall:.3f} s; {walls}")
     for line in lines:
@@ -269,8 +552,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
 
 
 def kernel_phase(torch, np, card: str, kernels) -> dict:
-    from sharkmer_tpu_torch.kernels import probe, run_scan, stitch
-    from sharkmer_tpu_torch.ops import reach
+    from sharkmer_tpu_torch.kernels import run_scan, stitch
 
     record = {}
     keys = torch.from_numpy(sorted_test_keys(np, KERNEL_N)).cuda()
@@ -279,31 +561,9 @@ def kernel_phase(torch, np, card: str, kernels) -> dict:
         record[name] = compare(torch, name, lambda: kernel(keys),
                                lambda: plain(keys), 5, card,
                                f"{KERNEL_N} sorted keys")
+        # read each 8 B key, write each 4 B position
+        record[name].update(byte_bound(12 * KERNEL_N))
     del keys
-    torch.cuda.empty_cache()
-
-    pk, pc, n_real = probe_partition(np, PART_ROWS, K)
-    keys, counts = torch.from_numpy(pk).cuda(), torch.from_numpy(pc).cuda()
-    start = time.monotonic()
-    side = reach.build_sidecar(keys, counts, K)
-    torch.cuda.synchronize()
-    print(f"probe partition: {PART_ROWS} rows, {n_real} keys; build_sidecar "
-          f"{time.monotonic() - start:.3f} s: bits {side.bits}, "
-          f"probe_blocks {side.probe_blocks}", flush=True)
-    mc = 20
-    for n_cand in (128, 2048):
-        cand = torch.from_numpy(probe_candidates(
-            np, pk, pc, n_real, n_cand, mc, seed=n_cand)).cuda()
-        args = (keys, counts, side.lut, side.shift, cand, mc,
-                side.probe_blocks)
-        result = compare(torch, "probe_rows", lambda: probe.probe_rows(*args),
-                         lambda: probe.probe_rows_plain(*args), 50, card,
-                         f"{n_cand} candidates, a {PART_ROWS}-row partition")
-        hits = int((probe.probe_rows(*args) >= 0).sum())
-        require(hits >= n_cand // 3, f"probe_rows: only {hits} hits")
-        print(f"probe_rows: {hits} of {n_cand} candidates hit", flush=True)
-        record[f"probe_rows@{n_cand}"] = result
-    del keys, counts, side
     torch.cuda.empty_cache()
 
     n_rows, width = STITCH_SHAPE
@@ -319,6 +579,9 @@ def kernel_phase(torch, np, card: str, kernels) -> dict:
         torch, "stitch_rows", lambda: stitch.stitch_rows(rows, offs, INT64_MAX),
         lambda: stitch.stitch_rows_plain(rows, offs, INT64_MAX), 10, card,
         f"[{n_rows}, {width}] rows, {int(lens.sum())} kept")
+    # read each kept element and the offsets, write the whole output
+    record["stitch_rows"].update(byte_bound(
+        8 * int(lens.sum()) + 4 * n_rows + 8 * n_rows * width))
     del rows, offs
     torch.cuda.empty_cache()
     return record
@@ -334,7 +597,7 @@ def main() -> int:
     import numpy as np
 
     from sharkmer_tpu_torch.io import native
-    from sharkmer_tpu_torch.kernels import build, probe, run_scan, stitch
+    from sharkmer_tpu_torch.kernels import build, closure, probe, run_scan, stitch
     from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
 
     t_start = time.monotonic()
@@ -357,7 +620,7 @@ def main() -> int:
         phase("2. build")
         start = time.monotonic()
         sources = sorted({os.path.basename(src)[:-3]
-                          for src, _ in KERNELS.values()})
+                          for src, _ in KERNELS.values()} | {"chase"})
         build.build_all(sources)
         print(f"nvcc build and load of {', '.join(sources)}: "
               f"{time.monotonic() - start:.2f} s")
@@ -368,10 +631,16 @@ def main() -> int:
         kernels = {"run_ends": run_scan.run_ends,
                    "run_starts": run_scan.run_starts,
                    "probe_rows": probe.probe_rows,
-                   "stitch_rows": stitch.stitch_rows}
+                   "stitch_rows": stitch.stitch_rows,
+                   "reach_closure": closure.reach_closure}
 
         phase("3. kernels vs plain PyTorch at the main path's shapes")
+        latency = load_latency(torch)
+        print(f"dependent-load latency: {latency['l2_ns']:.1f} ns through "
+              f"L2, {latency['dram_ns']:.1f} ns from DRAM on {card}",
+              flush=True)
         record = kernel_phase(torch, np, card, kernels)
+        record.update(closure_phase(torch, np, card, latency))
 
         phase("4. main path: 1M reads, cnidaria panel, default drain budget")
         start = time.monotonic()
@@ -391,7 +660,17 @@ def main() -> int:
             return to_sorted_arrays(self, *args, **kwargs)
 
         SortedKmerStore.to_sorted_arrays = counted_mirror
-        ctx = (torch, kernels, run_log, mirror_builds)
+        # on the card the closure must never fall back to its torch loop
+        plain_closure = closure.closure_plain
+
+        plain_closures = []
+
+        def counted_plain(*args, **kwargs):
+            plain_closures.append(1)
+            return plain_closure(*args, **kwargs)
+
+        closure.closure_plain = counted_plain
+        ctx = (torch, kernels, run_log, mirror_builds, plain_closures)
         os.environ.pop("SHARKMER_MAX_AGG", None)
         os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
         runs = {"default": drive_main_path(ctx, "default", 1_000_000)}
@@ -422,19 +701,39 @@ def main() -> int:
     required = {"run_ends": ("default", "max_agg_2^24"),
                 "run_starts": ("default", "max_agg_2^24"),
                 "probe_rows": ("default", "max_agg_2^24"),
-                "stitch_rows": ("max_agg_2^24", "4M")}
+                "stitch_rows": ("max_agg_2^24", "4M"),
+                "reach_closure": ("default", "max_agg_2^24", "4M")}
     for name, labels in required.items():
         for label in labels:
             require(runs[label][0][name] >= 1,
                     f"{name} was not launched in the {label} run")
+    for label in required["reach_closure"]:
+        counts = runs[label][0]
+        calls = counts["closure_calls"]
+        require(counts["probe_rows"] <= calls <= counts["reach_closure"],
+                f"{label}: {counts['probe_rows']} probe_rows and "
+                f"{counts['reach_closure']} reach_closure launches for "
+                f"{calls} closure calls")
 
+    parts = f"{CLOSURE_PARTS} partitions"
     records = []
     for name, (source, replaces) in KERNELS.items():
         if name == "probe_rows":
-            # the wide level's shape; the narrow one is printed above
-            rec = dict(record["probe_rows@2048"],
-                       narrow_ms=record["probe_rows@128"]["ms"],
-                       narrow_plain_ms=record["probe_rows@128"]["plain_ms"])
+            # a warm start's keys over CLOSURE_PARTS; on one beside it
+            one = record["probe_rows, 1 partition"]
+            rec = dict(record[f"probe_rows, {parts}"], **latency,
+                       one_part_ms=one["ms"], one_part_plain_ms=one["plain_ms"])
+        elif name == "reach_closure":
+            # a narrow call on one partition; on CLOSURE_PARTS and a wide
+            # call beside it
+            narrow, wide = record[f"narrow, {parts}"], record["wide, 1 partition"]
+            rec = dict(record["narrow, 1 partition"], **latency,
+                       parts_ms=narrow["ms"], parts_plain_ms=narrow["plain_ms"],
+                       parts_bound_ms=narrow["bound_ms"],
+                       parts_latency_bound_ms=narrow["latency_bound_ms"],
+                       wide_ms=wide["ms"], wide_plain_ms=wide["plain_ms"],
+                       wide_bound_ms=wide["bound_ms"],
+                       wide_latency_bound_ms=wide["latency_bound_ms"])
         else:
             rec = record[name]
         records.append({

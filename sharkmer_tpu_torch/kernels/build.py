@@ -43,7 +43,11 @@ def nvcc() -> str:
 def _build(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    # a shared header (csrc/*.cuh) counts as part of every source
+    newest = max(os.path.getmtime(os.path.join(CSRC_DIR, f))
+                 for f in os.listdir(CSRC_DIR)
+                 if f == f"{name}.cu" or f.endswith(".cuh"))
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"

@@ -3,21 +3,24 @@
 It replaces the Pallas TPU kernel of the JAX package,
 ``sharkmer_tpu/ops/pallas_kernels.py`` ``probe_rows``
 (``_gather_windows_kernel``), which ``ops/reach`` calls once per
-partition in every BFS level of a closure. For each candidate key it
-returns the row of one sorted partition that holds that key with a
-count ``>= min_count``, or -1. The candidate's bucket ``b = min(key >>
-shift, len(lut) - 2)`` bounds the search to rows ``[lut[b],
-lut[b + 1])`` (the LUT of ``ops/reach.build_sidecar``).
+partition in every BFS level of a closure. Here it probes a whole
+partitioned table (``PartTable``) in one launch: each candidate key goes
+to the partition whose key range holds it (``route_plain``), and the
+result is the global row id of that key with a count ``>= min_count``,
+or ``INF32``. The candidate's bucket ``b = min(key >> shift, len(lut) -
+2)`` bounds the search to rows ``[lut[b], lut[b + 1])`` of the partition
+(the LUT of ``ops/reach.build_sidecar``). The reach closure's warm start
+takes it; the closure's own levels probe inside ``reach_closure``.
 
-On a CPU tensor the wrapper runs the plain PyTorch version (the CPU
-path and the test oracle): the JAX package's unpacked XLA gather probe
-(``reach.py`` ``lookup``), which reads a fixed window of
-``probe_blocks`` 32-row blocks from the bucket's first block. On a
-CUDA tensor it launches the hand-written kernel in
-``csrc/probe_rows.cu`` (a warp per candidate scans exactly its bucket
-rows; see the source) on the current stream, or raises. The kernel
-needs no window width: ``probe_blocks`` only sizes the plain version's
-gather. ``probe_rows.launches`` counts the wrapper's kernel launches.
+On a CPU tensor the wrapper runs the plain PyTorch version
+(``probe_rows_plain``, the CPU path and the test oracle): per partition,
+the JAX package's unpacked XLA gather probe (``reach.py`` ``lookup``,
+here ``probe_window_plain``), which reads a fixed window of
+``probe_blocks`` 32-row blocks from the bucket's first block. On a CUDA
+tensor it launches the hand-written kernel in ``csrc/probe_rows.cu`` (a
+warp per candidate scans exactly its bucket rows; see the source) on the
+current stream, or raises. The kernel needs no window width.
+``probe_rows.launches`` counts the wrapper's kernel launches.
 """
 
 from __future__ import annotations
@@ -31,15 +34,17 @@ from ..ops.keys import SENTINEL
 from . import build
 
 BLOCK = 32  # rows per block of the plain version's window
+INF32 = 0x7FFF_FFFF  # "no row" in global row ids
 _count_lock = threading.Lock()  # gene threads probe concurrently
 
 
-def probe_rows_plain(keys, counts, lut, shift: int, cand, min_count: int,
-                     probe_blocks: int = 2) -> torch.Tensor:
-    """Window gather probe: rows ``[32 * (s >> 5), + 32 * probe_blocks)``
-    of the partition, restricted to the bucket rows ``[s, e)``. Exact
-    when the window covers every bucket, which ``build_sidecar``'s
-    ``probe_blocks`` guarantees."""
+def probe_window_plain(keys, counts, lut, shift: int, cand, min_count: int,
+                       probe_blocks: int = 2) -> torch.Tensor:
+    """Row (int32) of each candidate's key in one partition with a count
+    ``>= min_count``, else -1. Window gather probe: rows ``[32 * (s >>
+    5), + 32 * probe_blocks)`` of the partition, restricted to the bucket
+    rows ``[s, e)``. Exact when the window covers every bucket, which
+    ``build_sidecar``'s ``probe_blocks`` guarantees."""
     n_cand = cand.shape[0]
     if n_cand == 0:
         return torch.empty(0, dtype=torch.int32, device=cand.device)
@@ -57,58 +62,112 @@ def probe_rows_plain(keys, counts, lut, shift: int, cand, min_count: int,
     return row.to(torch.int32)
 
 
+def _check_part(sc) -> None:
+    """A partition as the kernels read it: contiguous 1-D int64 keys and
+    counts of one length and an int32 LUT of at least one bucket, all on
+    one device."""
+    for name, t, dtype in (("keys", sc.keys1d, torch.int64),
+                           ("counts", sc.counts1d, torch.int64),
+                           ("lut", sc.lut, torch.int32)):
+        if t.dtype != dtype:
+            raise TypeError(f"PartTable: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"PartTable: {name} must be contiguous 1-D")
+        if t.device != sc.keys1d.device:
+            raise ValueError(f"PartTable: {name} on {t.device}, keys on "
+                             f"{sc.keys1d.device}")
+    if sc.keys1d.shape != sc.counts1d.shape:
+        raise ValueError("PartTable: keys and counts differ in length")
+    if sc.lut.shape[0] < 2:
+        raise ValueError("PartTable: the LUT needs at least one bucket")
+
+
+# -- a partitioned table -----------------------------------------------------
+
+
+class PartTable:
+    """A partitioned table as the probes see it: per partition (ascending
+    key ranges) its sidecar (``ops/reach.PartSidecar``: sorted int64 keys
+    and counts, bucket LUT and shift, ``first_key`` the lower bound of its
+    key range) and its global row-id base. Global row ids follow partition
+    key order. ``desc`` holds the kernels' partition descriptors
+    (``csrc/probe_rows.cuh`` ``PartDesc``: six int64 words a partition)
+    on the table's device, and ``first_keys`` the partitions' first keys
+    there, both made once."""
+
+    def __init__(self, sidecars, bases):
+        self.sidecars = list(sidecars)
+        self.bases = tuple(int(b) for b in bases)
+        self.n_rows = sum(int(s.keys1d.shape[0]) for s in self.sidecars)
+        if self.n_rows >= 1 << 31:
+            raise ValueError("PartTable: global row ids are int32")
+        self.device = self.sidecars[0].keys1d.device
+        rows = []
+        for sc, base in zip(self.sidecars, self.bases):
+            _check_part(sc)
+            rows.append([sc.keys1d.data_ptr(), sc.counts1d.data_ptr(),
+                         sc.lut.data_ptr(), sc.first_key,
+                         sc.lut.shape[0] | (sc.shift << 32), base])
+        self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
+        self.first_keys = self.desc[:, 3].contiguous()
+
+
+def route_plain(first_keys, cand) -> torch.Tensor:
+    """The partition of each candidate: the last one whose first key is
+    ``<=`` it (partition 0 takes every smaller key)."""
+    return torch.searchsorted(first_keys[1:], cand, right=True)
+
+
+def probe_rows_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
+    """Global row id (int32) of each candidate with a count ``>=
+    min_count``, else ``INF32``: each candidate probes only the partition
+    that ``route_plain`` gives it."""
+    part = route_plain(table.first_keys, cand)
+    ids = torch.full(cand.shape, INF32, dtype=torch.int32, device=cand.device)
+    for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
+        mine = torch.where(part == i, cand, SENTINEL)
+        row = probe_window_plain(sc.keys1d, sc.counts1d, sc.lut, sc.shift,
+                                 mine, min_count, sc.probe_blocks)
+        ids = torch.where(row >= 0, row + base, ids)
+    return ids
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("probe_rows")
     if not getattr(lib, "_shk_bound", False):
         lib.shk_probe_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.shk_probe_rows.restype = ctypes.c_int
         lib._shk_bound = True
     return lib
 
 
-def _check(keys, counts, lut, cand) -> None:
-    for name, t, dtype in (("keys", keys, torch.int64),
-                           ("counts", counts, torch.int64),
-                           ("lut", lut, torch.int32),
-                           ("cand", cand, torch.int64)):
-        if t.dtype != dtype:
-            raise TypeError(f"probe_rows: {name} must be {dtype}, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"probe_rows: {name} must be contiguous 1-D")
-        if t.device != cand.device:
-            raise ValueError(f"probe_rows: {name} on {t.device}, "
-                             f"candidates on {cand.device}")
-    if keys.shape != counts.shape:
-        raise ValueError("probe_rows: keys and counts differ in length")
-    if keys.shape[0] >= 1 << 31 or cand.shape[0] >= 1 << 31:
-        raise ValueError("probe_rows: rows and candidates are int32")
-    if lut.shape[0] < 2:
-        raise ValueError("probe_rows: the LUT needs at least one bucket")
-
-
-def probe_rows(keys, counts, lut, shift: int, cand, min_count: int,
-               probe_blocks: int = 2) -> torch.Tensor:
-    """Row (int32) of each candidate's key in its bucket with a count
-    ``>= min_count``, else -1."""
+def probe_rows(table: PartTable, cand, min_count: int) -> torch.Tensor:
+    """Global row id (int32) of each candidate's key with a count ``>=
+    min_count``, else ``INF32``: ``probe_rows_plain`` on a CPU tensor,
+    one kernel launch on a CUDA one."""
     if cand.device.type == "cpu":
-        return probe_rows_plain(keys, counts, lut, shift, cand, min_count,
-                                probe_blocks)
+        return probe_rows_plain(table, cand, min_count)
     if cand.device.type != "cuda":
         raise ValueError(f"probe_rows: unsupported device {cand.device}")
-    _check(keys, counts, lut, cand)
+    desc = table.desc
+    if cand.dtype != torch.int64 or cand.dim() != 1 or not cand.is_contiguous():
+        raise ValueError("probe_rows: candidates must be contiguous 1-D int64")
+    if cand.device != desc.device:
+        raise ValueError(f"probe_rows: candidates on {cand.device}, "
+                         f"table on {desc.device}")
+    if cand.shape[0] >= 1 << 31:
+        raise ValueError("probe_rows: candidates are counted in int32")
     n_cand = cand.shape[0]
     lib = _lib()
     out = torch.empty(n_cand, dtype=torch.int32, device=cand.device)
     with torch.cuda.device(cand.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_probe_rows(
-            keys.data_ptr(), counts.data_ptr(), lut.data_ptr(), lut.shape[0],
-            shift, cand.data_ptr(), int(min_count), out.data_ptr(), n_cand,
-            stream,
+            desc.data_ptr(), desc.shape[0], cand.data_ptr(), int(min_count),
+            out.data_ptr(), n_cand, stream,
         )
     if rc != 0:
         raise RuntimeError(f"probe_rows: CUDA launch failed (cudaError {rc})")

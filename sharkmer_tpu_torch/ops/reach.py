@@ -14,18 +14,19 @@ table is then never built.
 
 Table probe: each partition gets a bucket LUT (``build_sidecar``):
 ``lut[b]`` is the first row whose key's top ``bits`` bits are >= b, so
-a candidate's rows lie in ``[lut[b], lut[b + 1])``. The probe is the
-``probe_rows`` kernel (``kernels/probe.py``): one exact probe for every
-k and every min count, with no probe plane beside the partition.
+a candidate's rows lie in ``[lut[b], lut[b + 1])``. A candidate probes
+only the partition whose key range holds it (``first_key``): one exact
+probe for every k and every min count, with no probe plane beside the
+partition.
 
-Visited set: one byte per global row id (the JAX package keeps a bitmap),
-and an append log of first-visit row ids in BFS level blocks, sorted
-and gathered once after the loop. The state machine (``_closure_run``) mirrors the JAX
-package's exactly, so the visited set and ``iters`` are the same: a
-wide phase at ``f_cap`` while the frontier exceeds ``f_narrow``, then a
-narrow phase in bodies of 4 levels. The JAX ``lax.while_loop`` is a
-host loop here; its condition syncs once per wide level and once per
-narrow 4-level body.
+Closure: each attempt of a call is one ``reach_closure`` launch
+(``kernels/closure.py``), which runs the JAX package's state machine
+(a wide phase at ``f_cap`` while the frontier exceeds ``f_narrow``,
+then a narrow phase in bodies of 4 levels) on the device, so the
+visited set and ``iters`` are the JAX package's. It returns an append
+log of first-visit row ids, sorted and gathered once here, and one
+packed state array that the host reads once per attempt. A warm start
+probes its keys with one ``probe_rows`` launch over every partition.
 """
 
 from __future__ import annotations
@@ -38,16 +39,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.probe import probe_rows
+from ..kernels.closure import reach_closure, unpack_state
+from ..kernels.probe import INF32 as _INF32
+from ..kernels.probe import PartTable, probe_rows
 from ..utils import phases
 from .encoding import KMER_SENTINEL
-from .histogram import revcomp
 from .keys import SENTINEL, counts_to_numpy, keys_to_device, keys_to_numpy
 
 log = logging.getLogger("sharkmer")
 
 EMPTY = np.uint64(KMER_SENTINEL)  # the host form; SENTINEL on the device
-_INF32 = 0x7FFF_FFFF
 
 # Closure shape defaults (the JAX package's): f_cap grows on overflow
 # along 256 -> 1024 -> 4096 -> ...
@@ -59,12 +60,11 @@ BLOCK = 32          # LUT sizing unit: rows a bucket should hold at most
 OUT_W = 1 << 14     # result rows gathered with the closure; more spill
 PRE_W = 4096        # warm-start keys kept (closest to the roots)
 
-# A closure is a host loop of small launches with a device sync per level
-# (per 4 levels in the narrow phase). The sPCR gene threads run closures
-# at the same time; interleaved, each one's syncs also wait for the
-# others' work on the shared stream, and the threads trade the GIL at
-# every sync, which made the sum several times slower than running them
-# one after another. So closures run one at a time.
+# Closures run one at a time, though the sPCR gene threads ask for them at
+# once: while a closure was a host loop with a sync per level, interleaved
+# closures waited on each other's work on the shared stream and took
+# several times longer in sum (PERF.md). Whether one launch per
+# attempt would now gain from interleaving is untested.
 _CLOSURE_LOCK = threading.Lock()
 
 
@@ -100,9 +100,11 @@ def _build_lut(keys: torch.Tensor, bits: int, shift: int):
 @dataclass(frozen=True)
 class PartSidecar:
     """One partition's probe structures (immutable per flush): its
-    sorted key and count arrays (aliased, no copy) and its bucket LUT.
-    ``probe_blocks`` is the 32-row window that covers the largest
-    bucket; only the plain probe reads it."""
+    sorted key and count arrays (aliased, no copy), its bucket LUT and
+    ``first_key``, the lower bound of its key range (the store's routing
+    bound; partition 0's is never consulted). ``probe_blocks`` is the
+    32-row window that covers the largest bucket; only the plain probe
+    reads it."""
 
     keys1d: torch.Tensor
     counts1d: torch.Tensor
@@ -110,9 +112,11 @@ class PartSidecar:
     bits: int
     shift: int
     probe_blocks: int = 2
+    first_key: int = 0
 
 
-def build_sidecar(part_keys, part_counts, k: int) -> PartSidecar:
+def build_sidecar(part_keys, part_counts, k: int,
+                  first_key: int = 0) -> PartSidecar:
     """The LUT of one de-ghosted partition: bits raised until every
     bucket holds at most BLOCK rows (or the bits cap), then the window
     of ``probe_blocks`` 32-row blocks that covers the largest bucket
@@ -129,155 +133,14 @@ def build_sidecar(part_keys, part_counts, k: int) -> PartSidecar:
     probe_blocks = 2
     while max_occ > BLOCK * probe_blocks - (BLOCK - 1):
         probe_blocks *= 2
-    return PartSidecar(part_keys, part_counts, lut, bits, shift, probe_blocks)
+    return PartSidecar(part_keys, part_counts, lut, bits, shift, probe_blocks,
+                       first_key)
 
 
 # -- reachability closure ------------------------------------------------------
 
 
-def closure_log_w(depth: int, f_cap: int) -> int:
-    """Log width: one f_cap block per level, depth levels + the root
-    block + up to 3 ghost levels from the narrow phase's 4-level body."""
-    return (depth + 4) * f_cap
-
-
-def _closure_run(lookup, c0, k: int, depth: int, f_cap: int,
-                 f_narrow: int, n_rows: int, pre=None):
-    """The closure state machine of the JAX package's ``_closure_run``.
-    ``lookup(cand) -> global row id | INF`` (int32) is the only
-    backend-specific piece; ``n_rows`` bounds the row ids.
-
-    ``c0``: the roots' candidate keys, sentinel-padded. ``pre``
-    (optional, sentinel-padded unique canonical keys) warm-starts the
-    visited set with the closed interior of a session's cache.
-
-    Returns (log [(depth+4)*f_cap] global row ids INF-padded in BFS
-    level blocks, boundary: the frontier at loop exit (non-empty only
-    when depth or overflow stopped it), n_vis (device scalar), iters
-    (int), overflow, done (device bools)). The narrow phase can run up
-    to 3 levels past ``depth``.
-
-    Two departures from the JAX formulation cut the torch ops a level
-    runs (each is a kernel launch and a host dispatch): the frontier
-    carries its keys' reverse complements, from which the neighbours'
-    reverse complements follow by shifts (no full ``revcomp`` per
-    level), and the visited set is one byte per row instead of a bitmap
-    (a gather to test, a store to mark). Neither changes what is visited.
-    """
-    device = c0.device
-    kmask = (1 << (2 * k)) - 1
-    top = 2 * (k - 1)
-    log_w = closure_log_w(depth, f_cap)
-    inf = _INF32
-    base = torch.arange(4, dtype=torch.int64, device=device)[None, :]
-    comp = 3 - base  # the complement of each appended base
-    # visited[row]; the extra last byte stands for INF and is set, so a
-    # clamped INF id tests as visited
-    visited = torch.zeros(n_rows + 1, dtype=torch.bool, device=device)
-    visited[n_rows] = True
-
-    def expand(frontier, frontier_rc):
-        """The 8 de Bruijn neighbours of each live frontier key (4 suffix
-        shifts, then 4 prefix shifts), canonical, with the reverse
-        complements of the canonical keys."""
-        f, r = frontier[:, None], frontier_rc[:, None]
-        cand = torch.cat([((f << 2) | base) & kmask, (base << top) | (f >> 2)],
-                         dim=1)
-        cand_rc = torch.cat([(comp << top) | (r >> 2),
-                             ((r << 2) | comp) & kmask], dim=1)
-        live = (frontier != SENTINEL)[:, None]
-        cc = torch.where(live, torch.minimum(cand, cand_rc), SENTINEL)
-        return cc.reshape(-1), torch.maximum(cand, cand_rc).reshape(-1)
-
-    def mark(ids):
-        visited[torch.clamp(ids, max=n_rows)] = True
-
-    def process(cc, cc_rc, width: int):
-        """First-visit hits among the canonical candidates ``cc``: in the
-        table, count >= the floor, not yet visited, unique within the
-        call. Returns (frontier keys [width] and their reverse
-        complements, their ids [width] ascending INF-padded, n_new,
-        overflow: more new rows than the frontier carries)."""
-        ids = lookup(cc)
-        ids = torch.where(visited[torch.clamp(ids, max=n_rows)], inf, ids)
-        ids_s, order = torch.sort(ids)
-        first = torch.ones_like(ids_s, dtype=torch.bool)
-        first[1:] = ids_s[1:] != ids_s[:-1]
-        ids_s = torch.where(first, ids_s, inf)
-        n_all = (ids_s != inf).sum()
-        ids_f, order2 = torch.sort(ids_s)
-        ids_f = ids_f[:width]
-        pick = order[order2[:width]]  # the candidate behind each slot
-        km_f = torch.where(ids_f != inf, cc[pick], SENTINEL)
-        rc_f = cc_rc[pick]
-        if ids_f.shape[0] < width:
-            # the root call can be narrower than the frontier after a
-            # grow-retry raised f_cap past c0's width
-            pad = width - ids_f.shape[0]
-            ids_f = torch.cat([ids_f, ids_f.new_full((pad,), inf)])
-            km_f = torch.cat([km_f, km_f.new_full((pad,), SENTINEL)])
-            rc_f = torch.cat([rc_f, rc_f.new_full((pad,), SENTINEL)])
-        n_new = (ids_f != inf).sum()
-        return km_f, rc_f, ids_f, n_new, n_all > n_new
-
-    def body(state, width: int):
-        frontier, frontier_rc, log_ids, n_vis, it, overflow, _done = state
-        km, rc, ids, n_new, ov = process(*expand(frontier, frontier_rc),
-                                         width)
-        mark(ids)
-        # log blocks are addressed in f_cap strides in both phases (the
-        # narrow block's tail stays INF); the start clamps like
-        # lax.dynamic_update_slice
-        start = min(it * f_cap, log_w - width)
-        log_ids[start : start + width] = ids
-        return (km, rc, log_ids, n_vis + n_new, it + 1, overflow | ov,
-                n_new == 0)
-
-    def running(state) -> bool:
-        """The JAX narrow-loop condition; one device sync."""
-        it, overflow, done = state[4:]
-        return it <= depth and bool(~done & ~overflow)
-
-    if pre is not None:
-        # unique keys -> unique rows; rows below the floor probe to INF
-        mark(lookup(pre))
-    rc0 = revcomp(c0, k)
-    cc0 = torch.where(c0 == SENTINEL, c0, torch.minimum(c0, rc0))
-    km0, rc0, ids0, n0, ov0 = process(cc0, torch.maximum(c0, rc0), f_cap)
-    mark(ids0)
-    log0 = torch.full((log_w,), inf, dtype=torch.int32, device=device)
-    log0[: ids0.shape[0]] = ids0
-
-    state = (km0, rc0, log0, n0, 1, ov0, n0 == 0)
-    if f_narrow < f_cap:
-        while True:
-            frontier, it, overflow, done = state[0], *state[4:]
-            # the wide phase runs while the frontier would overflow the
-            # narrow width; iteration 0 (the roots) ran above
-            if it > depth:
-                break
-            n_live = (frontier != SENTINEL).sum()
-            if not bool(~done & ~overflow & (n_live > f_narrow)):
-                break
-            state = body(state, f_cap)
-        # the frontier's live walkers are sorted to the front; the tail
-        # cut off here is live only when depth or overflow ended the
-        # wide phase, and then belongs to the boundary
-        wide_tail = state[0][f_narrow:]
-        state = (state[0][:f_narrow], state[1][:f_narrow], *state[2:])
-        while running(state):
-            for _ in range(4):  # a done state passes through unchanged
-                state = body(state, f_narrow)
-        boundary = torch.cat([state[0], wide_tail])
-    else:
-        while running(state):
-            state = body(state, f_cap)
-        boundary = state[0]
-    _, _, log_ids, n_vis, it, overflow, done = state
-    return log_ids, boundary, n_vis, it, overflow, done
-
-
-def _gather_rows(keys1d, counts1d, bases, ids):
+def _gather_rows(table: PartTable, ids):
     """(keys, counts) of global row ``ids`` (INF-padded, any order) from
     the partitions' sorted arrays; sentinel/0 where the id is INF."""
     live = ids != _INF32
@@ -285,7 +148,8 @@ def _gather_rows(keys1d, counts1d, bases, ids):
     out_keys = torch.full(ids.shape, SENTINEL, dtype=torch.int64,
                           device=ids.device)
     out_counts = torch.zeros(ids.shape, dtype=torch.int64, device=ids.device)
-    for k1d, c1d, base in zip(keys1d, counts1d, bases):
+    for sc, base in zip(table.sidecars, table.bases):
+        k1d, c1d = sc.keys1d, sc.counts1d
         local = ids - base
         mine = live & (local >= 0) & (local < k1d.shape[0])
         safe = torch.where(mine, local, 0)
@@ -294,36 +158,22 @@ def _gather_rows(keys1d, counts1d, bases, ids):
     return out_keys, out_counts
 
 
-def _reach_call(sidecars, bases, c0, min_count: int, k: int, depth: int,
-                f_cap: int, f_narrow: int, n_rows: int, pre=None):
+def _reach_call(table: PartTable, c0, min_count: int, k: int, depth: int,
+                f_cap: int, f_narrow: int, pre_ids=None):
     """One closure over the partitioned table (the JAX package's
-    ``_reach_kernel``). Returns (keys, counts [OUT_W], boundary,
-    [n_vis, iters, overflow, done], log_sorted): the first-visit id log
-    sorted ascending (INF behind) and gathered up to OUT_W rows; the
-    driver re-gathers wider from ``log_sorted`` when n_vis > OUT_W."""
-    probe_w = max(s.probe_blocks for s in sidecars)
-
-    def lookup(cand):
-        """(global row id | INF) per candidate key (int32)."""
-        ids = _INF32
-        for sc, base in zip(sidecars, bases):
-            row = probe_rows(sc.keys1d, sc.counts1d, sc.lut, sc.shift, cand,
-                             min_count, probe_w)
-            ids = torch.where(row >= 0, row + base if base else row, ids)
-        return ids
-
-    log_ids, boundary, n_vis, it, overflow, done = _closure_run(
-        lookup, c0, k, depth, f_cap, f_narrow, n_rows, pre=pre)
+    ``_reach_kernel``): one ``reach_closure`` call. Returns (keys, counts
+    [OUT_W], boundary, [n_vis, iters, overflow, done], log_sorted): the
+    first-visit id log sorted ascending (INF behind) and gathered up to
+    OUT_W rows; ``_drive_closure`` re-gathers wider from ``log_sorted`` when
+    n_vis > OUT_W."""
+    log_ids, boundary, state = reach_closure(
+        table, c0, pre_ids, min_count, k, depth, f_cap, f_narrow)
     # compact the log first (global row ids follow partition key order,
     # so ascending ids are ascending keys), then gather a short prefix
     log_sorted = torch.sort(log_ids).values
     out_w = min(OUT_W, log_sorted.shape[0])
-    keys, counts = _gather_rows(
-        [s.keys1d for s in sidecars], [s.counts1d for s in sidecars], bases,
-        log_sorted[:out_w])
-    n_vis, overflow, done = torch.stack(
-        [n_vis, overflow.to(torch.int64), done.to(torch.int64)]).tolist()
-    return keys, counts, boundary, [n_vis, it, overflow, done], log_sorted
+    keys, counts = _gather_rows(table, log_sorted[:out_w])
+    return keys, counts, boundary, unpack_state(state), log_sorted
 
 
 @dataclass
@@ -468,25 +318,24 @@ def _drive_closure(run_kernel, roots: np.ndarray, depth: int,
     return ReachResult(keys, counts, complete, iters, bound)
 
 
-def reach(sidecars: list[PartSidecar], bases: tuple, roots: np.ndarray,
-          min_count: int, k: int, depth: int = DEPTH, f_cap: int = F_CAP,
-          max_retries: int = 4, pre=None) -> ReachResult | None:
-    """Single-device reach over the partitions' sidecars; ``bases`` are
-    the partitions' global row-id offsets."""
-    device = sidecars[0].keys1d.device
-    pre_k = _pad_pre(pre, roots=roots)
-    pre_t = keys_to_device(pre_k, device) if pre_k is not None else None
-    n_rows = sum(int(s.keys1d.shape[0]) for s in sidecars)
+def reach(table: PartTable, roots: np.ndarray, min_count: int, k: int,
+          depth: int = DEPTH, f_cap: int = F_CAP, max_retries: int = 4,
+          pre=None) -> ReachResult | None:
+    """Single-device reach over a partitioned table of ``PartSidecar``s
+    (built once per flush by the store's ``_spcr_index``)."""
+    device = table.device
     mc = max(min_count, 1)
+    pre_k = _pad_pre(pre, roots=roots)
+    # unique keys -> unique rows; rows below the floor probe to INF
+    pre_ids = (probe_rows(table, keys_to_device(pre_k, device), mc)
+               if pre_k is not None else None)
 
     def run_kernel(c0, cur_f, cur_n):
-        return _reach_call(sidecars, bases, keys_to_device(c0, device), mc,
-                           k, depth, cur_f, cur_n, n_rows, pre=pre_t)
+        return _reach_call(table, keys_to_device(c0, device), mc, k, depth,
+                           cur_f, cur_n, pre_ids=pre_ids)
 
     def spill_gather(log_sorted, width):
-        return _gather_rows([s.keys1d for s in sidecars],
-                            [s.counts1d for s in sidecars], bases,
-                            log_sorted[:width])
+        return _gather_rows(table, log_sorted[:width])
 
     with _CLOSURE_LOCK:
         return _drive_closure(run_kernel, roots, depth, f_cap, max_retries,

@@ -23,7 +23,7 @@ The count path is built from sorts and scans, as in the JAX package:
   exact u32 saturation.
 * **queries**: histogram, totals, binary-search lookups, primer scans,
   the sPCR ``reach`` closure (``ops/reach.py``, on per-partition bucket
-  LUTs and the ``probe_rows`` kernel) and the filtered host export, per
+  LUTs and the ``reach_closure`` kernel) and the filtered host export, per
   partition.
 
 Keys and counts are int64 tensors on ``device`` (``ops/keys.py``).
@@ -42,6 +42,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..kernels.probe import PartTable
 from ..kernels.run_scan import run_ends, run_starts
 from ..kernels.stitch import stitch_rows
 from . import reach as reach_mod
@@ -310,9 +311,8 @@ class _Part:
 
 @dataclass(frozen=True)
 class _SpcrIndex:
-    sidecars: list  # reach_mod.PartSidecar per partition
+    table: PartTable  # reach_mod.PartSidecar per partition, row-id bases
     rc_indexes: list  # (rc_sorted, rc_order) per partition
-    bases: tuple  # global row id of each partition's row 0
 
 
 @dataclass
@@ -630,11 +630,12 @@ class SortedKmerStore:
 
     def _spcr_index(self) -> _SpcrIndex:
         """Per-partition sPCR structures, cached until the partition list
-        changes (partitions are replaced, never mutated): the bucket LUT
-        sidecars of ``reach``, the revcomp-sorted indexes of the primer
-        scans, and each partition's global row-id base. Partitions still
-        holding ghost rows are de-ghosted first: a ghost run would
-        inflate its bucket far past the LUT's 32-row sizing."""
+        changes (partitions are replaced, never mutated): the partitioned
+        table of ``reach`` (each partition's bucket LUT sidecar and global
+        row-id base, and the kernels' descriptors), and the revcomp-sorted
+        indexes of the primer scans. Partitions still holding ghost rows
+        are de-ghosted first: a ghost run would inflate its bucket far
+        past the LUT's 32-row sizing."""
         s = self._flushed()
         token = tuple(id(p) for p in s.parts)
         if self._spcr_cache is not None and self._spcr_cache[0] == token:
@@ -648,10 +649,10 @@ class SortedKmerStore:
             bases.append(off)
             off += p.kmers.shape[0]
         index = _SpcrIndex(
-            sidecars=[reach_mod.build_sidecar(p.kmers, p.counts, s.k)
-                      for p in s.parts],
+            table=PartTable([reach_mod.build_sidecar(p.kmers, p.counts, s.k,
+                                                     p.first_key)
+                             for p in s.parts], bases),
             rc_indexes=[rc_index(p.kmers, s.k) for p in s.parts],
-            bases=tuple(bases),
         )
         # the token is taken after de-ghosting: the partitions changed
         self._spcr_cache = (tuple(id(p) for p in s.parts), index)
@@ -673,9 +674,8 @@ class SortedKmerStore:
         if not s.parts:
             return reach_mod.ReachResult(
                 np.zeros(0, np.uint64), np.zeros(0, np.uint32), True, 0)
-        index = self._spcr_index()
         return reach_mod.reach(
-            index.sidecars, index.bases, roots, min_count, s.k,
+            self._spcr_index().table, roots, min_count, s.k,
             depth=depth or reach_mod.DEPTH, pre=pre,
         )
 

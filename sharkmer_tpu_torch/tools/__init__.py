@@ -1,1 +1,2 @@
-"""Offline tools that need no accelerator (synthetic read generation)."""
+"""Offline tools: synthetic read generation (``synth``) and a profiler
+trace of one CLI run on the card (``trace_spcr``)."""

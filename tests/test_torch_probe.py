@@ -3,8 +3,8 @@
 The same seeded tables go to ``sharkmer_tpu`` (JAX on the CPU, the
 Pallas ``probe_rows`` in interpret mode on its probe plane) and
 ``sharkmer_tpu_torch`` (torch on the CPU, where ``probe_rows`` runs its
-plain version; ``chip_smoke.py`` compares the CUDA kernel with it on the
-card). Every comparison is exact.
+plain version over a one-partition table; ``chip_smoke.py`` compares the
+CUDA kernel with it on the card). Every comparison is exact.
 """
 
 import jax.numpy as jnp
@@ -64,10 +64,15 @@ def test_probe_rows_plain_matches_pallas():
 
     tk, tc = _pair(keys, counts)
     sc = reach.build_sidecar(tk, tc, k)
-    got = probe.probe_rows(tk, tc, sc.lut, sc.shift, keys_to_device(cand, "cpu"),
-                           mc, sc.probe_blocks)
+    tcand = keys_to_device(cand, "cpu")
+    window = probe.probe_window_plain(tk, tc, sc.lut, sc.shift, tcand, mc,
+                                      sc.probe_blocks)
+    np.testing.assert_array_equal(window.numpy(), want)
+    # the wrapper on one partition: its row, or INF32 for a miss
+    got = probe.probe_rows(probe.PartTable([sc], [0]), tcand, mc)
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        np.where(got.numpy() == probe.INF32, -1, got.numpy()), want)
     n_hits = int((want >= 0).sum())
     assert n_hits == 40  # only the keys at or above the min count
     assert probe.probe_rows.launches == 0  # CPU: no kernel launch

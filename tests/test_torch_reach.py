@@ -1,9 +1,9 @@
 """The port store's reach closure against the JAX store's.
 
 The same seeded reads or tables go to ``sharkmer_tpu`` (JAX on the CPU)
-and ``sharkmer_tpu_torch`` (torch on the CPU, where ``probe_rows`` runs
-its plain version; ``tests/test_torch_probe.py`` holds it to the Pallas
-probe). Keys and counts are integers, so every comparison is exact: a
+and ``sharkmer_tpu_torch`` (torch on the CPU, where ``probe_rows`` and
+``reach_closure`` run their plain versions; ``tests/test_torch_probe.py``
+holds the probe to the Pallas one). Keys and counts are integers, so every comparison is exact: a
 closure must give the same keys, counts, ``complete`` flag, ``iters``
 and boundary.
 """
@@ -147,5 +147,5 @@ def test_reach_overflow_returns_none():
     roots = keys[:1]
     assert jax_reach.reach(sidecars, bases, roots, 1, k, depth=64,
                            max_retries=0) is None
-    assert reach.reach(index.sidecars, index.bases, roots, 1, k, depth=64,
+    assert reach.reach(index.table, roots, 1, k, depth=64,
                        max_retries=0) is None
