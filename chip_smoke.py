@@ -16,8 +16,12 @@ Phases, each printed on its own lines; every check raises on failure:
    (``csrc/chase.cu``, a pointer chase), for the latency bounds; each
    kernel against its plain PyTorch version on the card, at the main
    path's shapes: ``run_ends``/``run_starts`` on 2^27 sorted int64 keys
-   (the drain width), ``stitch_rows`` on [2048, 65536] rows (the 2^27
-   drain v2): exact equality, and median CUDA-event times; then
+   (the drain width), also held to ``torch.searchsorted`` and timed
+   beside it, then on 2^27 equal keys, on 2^24 sorted keys (the 2^24
+   cell's drain width) and at ragged lengths around their tile, one at
+   a key pointer offset by one element; ``stitch_rows`` on [2048, 65536]
+   rows (the 2^27 drain v2): exact equality, and median CUDA-event
+   times; then
    ``reach_closure`` against the plain closure loop on a 2^26-row table
    that holds every 19-mer of a random genome plus filler keys, as one
    partition and cut into 21 key-range partitions: a narrow and a wide
@@ -153,9 +157,11 @@ def median_ms(torch, fn, reps: int) -> float:
 
 
 def compare(torch, name: str, kernel, plain, reps: int, card: str,
-            what: str) -> dict:
-    """Exact equality of kernel() and plain(), then median times in
-    turns: plain, kernel, kernel, plain."""
+            what: str, library=None) -> dict:
+    """Exact equality of kernel() with plain() and, where given, with
+    library() (one PyTorch call that computes the same function), then
+    median times in turns: plain, library, kernel, kernel, library,
+    plain."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     require(got.dtype == want.dtype and got.shape == want.shape,
@@ -166,20 +172,27 @@ def compare(torch, name: str, kernel, plain, reps: int, card: str,
     require(err == 0 and torch.equal(got, want),
             f"{name}: kernel differs from plain on {what} "
             f"(max abs err {err})")
+    if library is not None:
+        require(torch.equal(got, library()),
+                f"{name}: kernel differs from the library call on {what}")
     del got, want
     plain_ms = median_ms(torch, plain, reps)
+    library_ms = None if library is None else median_ms(torch, library, reps)
     ms = (median_ms(torch, kernel, reps) + median_ms(torch, kernel, reps)) / 2
+    if library is not None:
+        library_ms = (library_ms + median_ms(torch, library, reps)) / 2
     plain_ms = (plain_ms + median_ms(torch, plain, reps)) / 2
+    lib_text = "" if library is None else f", {library_ms:.4f} ms library"
     print(f"{name}: exact on {what}; median {ms:.4f} ms kernel vs "
-          f"{plain_ms:.4f} ms plain on {card}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.4f} ms plain{lib_text} on {card}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms}
 
 
 def byte_bound(n_bytes: int) -> dict:
-    """The least time for ``n_bytes`` at the card's memory rate; no
-    single PyTorch call computes any of these functions."""
+    """The least time for ``n_bytes`` at the card's memory rate."""
     return {"bound_ms": n_bytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
-            "library_ms": None, "bytes": n_bytes}
+            "bytes": n_bytes}
 
 
 def load_latency(torch) -> dict:
@@ -408,6 +421,7 @@ def closure_phase(torch, np, card: str, latency: dict) -> dict:
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "n_vis": gs[0], "iters": gs[1], "done": gs[3],
                   "boundary": int(g_b.numel()),
+                  "library_ms": None,  # no torch op runs a BFS closure
                   **byte_bound(closure_bytes(torch, table, c0, pre_ids, g_log,
                                              gs, got[1], K)),
                   "latency_bound_ms": chain_ms(latency, levels),
@@ -551,21 +565,62 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     return counts, walls
 
 
-def kernel_phase(torch, np, card: str, kernels) -> dict:
-    from sharkmer_tpu_torch.kernels import run_scan, stitch
+def run_scan_phase(torch, np, card: str, kernels) -> dict:
+    """``run_ends`` and ``run_starts`` against their plain versions and
+    ``torch.searchsorted`` (exact), with median times: at 2^27 on
+    ``sorted_test_keys`` (the drain width; the record's main row) and on
+    all-equal keys, at 2^24 (the 2^24 cell's drain width), and at ragged
+    lengths around the kernels' tile, once at a key pointer offset by one
+    element. A ragged input is a slice across the start of the 2^24
+    keys' sentinel tail."""
+    from sharkmer_tpu_torch.kernels import run_scan
 
-    record = {}
+    library = {
+        "run_starts": lambda keys: torch.searchsorted(keys, keys,
+                                                      out_int32=True),
+        "run_ends": lambda keys: torch.searchsorted(
+            keys, keys, right=True, out_int32=True) - 1,
+    }
+    inputs = {name: {} for name in library}
+
+    def check(what, keys, reps):
+        for name, lib_call in library.items():
+            kernel, plain = kernels[name], getattr(run_scan, f"{name}_plain")
+            result = compare(torch, name, lambda: kernel(keys),
+                             lambda: plain(keys), reps, card, what,
+                             lambda: lib_call(keys))
+            # read each 8 B key, write each 4 B position
+            inputs[name][what] = {**result, **byte_bound(12 * keys.numel())}
+
+    main_what = f"{KERNEL_N} sorted keys"
     keys = torch.from_numpy(sorted_test_keys(np, KERNEL_N)).cuda()
-    for name in ("run_ends", "run_starts"):
-        kernel, plain = kernels[name], getattr(run_scan, f"{name}_plain")
-        record[name] = compare(torch, name, lambda: kernel(keys),
-                               lambda: plain(keys), 5, card,
-                               f"{KERNEL_N} sorted keys")
-        # read each 8 B key, write each 4 B position
-        record[name].update(byte_bound(12 * KERNEL_N))
+    check(main_what, keys, 5)
+    keys.zero_()
+    check(f"{KERNEL_N} equal keys", keys, 5)
     del keys
     torch.cuda.empty_cache()
+    n = 1 << 24
+    keys = torch.from_numpy(sorted_test_keys(np, n)).cuda()
+    check(f"{n} sorted keys", keys, 10)
+    tile = run_scan.tile()
+    tail = n - n // 7
+    for length in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
+        lo = tail - length // 2
+        check(f"{length} keys (ragged, tile {tile})",
+              keys[lo:lo + length].clone(), 10)
+    buf = keys[lo:lo + length + 1].clone()
+    require(buf[1:].data_ptr() % 16 == 8, "the offset keys are 16-B aligned")
+    check(f"{length} keys at a pointer offset by 8 B", buf[1:], 10)
+    del keys, buf
+    torch.cuda.empty_cache()
+    return {name: {**runs.pop(main_what), "inputs": runs}
+            for name, runs in inputs.items()}
 
+
+def kernel_phase(torch, np, card: str, kernels) -> dict:
+    from sharkmer_tpu_torch.kernels import stitch
+
+    record = run_scan_phase(torch, np, card, kernels)
     n_rows, width = STITCH_SHAPE
     rng = np.random.default_rng(2)
     lens = rng.integers(0, width + 1, size=n_rows)

@@ -11,11 +11,15 @@ Each wrapper takes a contiguous int64 tensor of sorted keys with fewer
 than 2^31 elements and returns int32 positions. On a CPU tensor it runs
 the plain PyTorch version (the CPU path and the test oracle); on a
 CUDA tensor it launches the hand-written kernel in ``csrc/run_scan.cu``
-(three passes: tile-local scan, scan of the tile aggregates, carry
-fold; see the source for the design) on the current stream, or raises.
-The kernels are bound by device memory bandwidth: 8 B read and 4 B
-written per element at best. ``<wrapper>.launches`` counts the
-wrapper's kernel launches, so that a run can show it went through them.
+on the current stream, or raises. Each kernel is one pass in one
+launch: a block scans its tile, and the start (end) of a run that
+enters the tile from before (after) it is a galloping search, since
+for sorted keys ``run_starts(k) == searchsorted(k, k)`` and
+``run_ends(k) == searchsorted(k, k, right=True) - 1`` (see the source
+for the design). The wrapper allocates only the output. The kernels
+are bound by device memory bandwidth: 8 B read and 4 B written per
+element. ``<wrapper>.launches`` counts the wrapper's kernel launches,
+so that a run can show it went through them.
 """
 
 from __future__ import annotations
@@ -54,13 +58,18 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("run_scan")
     if not getattr(lib, "_shk_bound", False):
         for fn in (lib.shk_run_ends, lib.shk_run_starts):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.shk_run_scan_tile.argtypes = []
         lib.shk_run_scan_tile.restype = ctypes.c_int
         lib._shk_bound = True
     return lib
+
+
+def tile() -> int:
+    """Keys per tile (per block) of the CUDA kernels."""
+    return _lib().shk_run_scan_tile()
 
 
 def _launch(entry: str, sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -73,15 +82,10 @@ def _launch(entry: str, sorted_keys: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{entry}: {n} elements; positions are int32")
     lib = _lib()
     out = torch.empty(n, dtype=torch.int32, device=sorted_keys.device)
-    tile = lib.shk_run_scan_tile()
-    scratch = torch.empty(max(1, -(-n // tile)), dtype=torch.int32,
-                          device=sorted_keys.device)
     with torch.cuda.device(sorted_keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            sorted_keys.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
-            stream,
-        )
+        rc = getattr(lib, entry)(sorted_keys.data_ptr(), out.data_ptr(), n,
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed (cudaError {rc})")
     return out

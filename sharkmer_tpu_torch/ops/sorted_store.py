@@ -136,7 +136,8 @@ def _aggregate(kmers, counts, count_bits: int = 0):
     the u32 maximum); compact the unique keys, still sorted, to the
     front with sentinels behind. Returns (keys, totals, n_unique) at
     the input's width (``_aggregate_impl``; each ``lax.cond`` there is
-    a host ``if`` here, and its cummax the ``run_starts`` kernel plus a
+    a host ``if`` here, and its cummax over run-start values the
+    one-pass ``run_starts`` kernel, each key's lower bound, plus a
     gather)."""
     occupied = kmers != SENTINEL
     sk = None
