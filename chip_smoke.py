@@ -43,15 +43,36 @@ Phases, each printed on its own lines; every check raises on failure:
    its sPCR wall beside phase 4's;
 7. the 4M-read cell at the default budget against
    ``benchmarks/work/cnidaria/synthetic-seed0/4000000``: a ghosted
-   first drain, then drain v2 at the full 2^27 width.
+   first drain, then drain v2 at the full 2^27 width;
+8. the hash backend's kernels against their plain versions on one real
+   ingest batch (the port's canonical k-mers of the FASTQ's first 2^17
+   reads): ``hash_insert`` into a fresh 2^27-slot table, again into the
+   same table (all hits), and the rehash of a 2^26-slot table into 2^27
+   slots, each table's sorted rows equal to the plain version's (the
+   slot layouts may differ: claims race); ``hash_lookup`` on a 4096-query
+   wave and on 2^20 queries, half of them random keys, exact;
+9. the 1M cell with ``--backend hash`` (``--mirror auto`` resolves to the
+   host mirror: the hash table has no reach closure) and ``--save-table
+   build/chip_smoke/hash_1M.npz``, held to the same oracle as phase 4;
+10. the 1M cell with ``--backend hash --mirror device`` (directional
+    lookups on ``hash_lookup``);
+11. ``--load-table`` of phase 9's checkpoint with no FASTQ: into the
+    sorted backend (which then runs sPCR on the reach closure) and into
+    the hash backend, each held to the 1M oracle;
+12. the 4M cell with ``--backend hash`` (the table grows to 2^28 slots).
 
 Each kernel's launch count is reset just before each main-path run and
 read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
 warm starts) must launch in phases 4 and 5, ``stitch_rows`` in phases 5
-and 7, ``reach_closure`` in phases 4, 5 and 7 at least once per closure
-call (the run's ``closures`` sPCR phase), where ``probe_rows`` may launch
-no more often than that, the plain closure loop must never run and the
-host mirror must not be built. A logged
+and 7, ``reach_closure`` in phases 4, 5, 7 and 11 (sorted) at least once
+per closure call (the run's ``closures`` sPCR phase), where
+``probe_rows`` may launch no more often than that, the plain closure
+loop must never run and the sorted store's host mirror must not be
+built. ``hash_insert`` must launch in phases 9, 11 (hash) and 12,
+``hash_lookup`` in phase 10, and none of the sorted store's kernels in
+phases 9, 10 and 12; ``KmerTable.to_sorted_arrays`` (the host mirror)
+runs once in phases 9 (plus once for the checkpoint), 11 (hash) and 12,
+and never in phase 10. A logged
 ``sPCR device-index build failed`` or ``reach warmup failed`` (the copied
 ``pcr/counts.py`` swallows those errors and falls back to the host
 mirror) fails the run. The last two lines of standard output are the
@@ -70,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PANEL = os.path.join(HERE, "sharkmer_tpu_torch", "panels", "cnidaria.yaml")
@@ -86,6 +108,11 @@ CLOSURE_PARTS = 21
 CLOSURE_MC = 2  # the closures' count floor
 HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
 STITCH_SHAPE = (2048, 1 << 16)
+HASH_READS = 1 << 17  # one CLI ingest batch
+HASH_CAP = 1 << 27  # the 1M cell's final hash table
+LOOKUP_WAVE = 4096
+LOOKUP_MANY = 1 << 20
+CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
 K = 19
 INT64_MAX = (1 << 63) - 1
 VARYING_STATS = ("command", "peak_memory_bytes")
@@ -104,6 +131,11 @@ KERNELS = {
     # the JAX closure loop (ops/reach.py _closure_run) around probe_rows
     "reach_closure": ("sharkmer_tpu_torch/csrc/reach_closure.cu",
                       "sharkmer_tpu/ops/pallas_kernels.py:395"),
+    # XLA programs, not Pallas kernels: torch has no op for either
+    "hash_insert": ("sharkmer_tpu_torch/csrc/hash_table.cu",
+                    "sharkmer_tpu/ops/hashtable.py:69"),
+    "hash_lookup": ("sharkmer_tpu_torch/csrc/hash_table.cu",
+                    "sharkmer_tpu/ops/hashtable.py:199"),
 }
 
 
@@ -143,9 +175,13 @@ def sorted_test_keys(np, n: int):
     return np.concatenate([keys, np.full(tail, INT64_MAX, np.int64)])
 
 
-def median_ms(torch, fn, reps: int) -> float:
+def median_ms(torch, fn, reps: int, reset=None) -> float:
+    """Median CUDA-event ms of ``reps`` calls of ``fn``, each after an
+    untimed ``reset`` where one is given."""
     times = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -501,24 +537,30 @@ def closure_calls(lines) -> int:
     return 0
 
 
-def drive_main_path(ctx, label: str, n_reads: int, extra=()):
-    """One CLI run of the cnidaria cell at ``n_reads``; returns (the
-    kernels' launch counts of this run, its stage-walls line)."""
+def drive_main_path(ctx, label: str, n_reads: int, extra=(),
+                    fastq: bool = True):
+    """One CLI run of the cnidaria cell at ``n_reads`` (from the FASTQ,
+    or, with ``fastq=False``, from the checkpoint that ``extra`` names);
+    returns (the kernels' launch counts and the run's hash-table
+    counters, its stage-walls line)."""
     import yaml
 
     from sharkmer_tpu_torch.main import main
 
-    torch, kernels, run_log, mirror_builds, plain_closures = ctx
+    torch, kernels, run_log = ctx.torch, ctx.kernels, ctx.run_log
     sample = f"synthetic-seed0_{n_reads}"
     oracle = os.path.join(ORACLES, str(n_reads))
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
-    argv = ["-s", sample, "-k", str(K), "-t", "8", "-m", str(n_reads),
-            "-o", out, "--pcr-panel-file", PANEL, *extra, FASTQ]
+    argv = ["-s", sample, "-k", str(K), "-t", "8", "-o", out,
+            "--pcr-panel-file", PANEL, *extra]
+    if fastq:
+        argv += ["-m", str(n_reads), FASTQ]
     torch.cuda.reset_peak_memory_stats()
     n_lines = len(run_log.lines)
-    mirror_builds.clear()
-    plain_closures.clear()
+    for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
+                   ctx.hash_grows, ctx.lookup_waves):
+        events.clear()
     for fn in kernels.values():
         fn.launches = 0
     start = time.monotonic()
@@ -528,12 +570,13 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     require(rc == 0, f"{label}: the CLI exited {rc}")
     require(not run_log.fallbacks,
             f"{label}: the sPCR index fell back: {run_log.fallbacks}")
-    require(not plain_closures,
-            f"{label}: {len(plain_closures)} closures ran the torch loop")
-    require("--mirror" in extra or not mirror_builds,
+    require(not ctx.plain_closures,
+            f"{label}: {len(ctx.plain_closures)} closures ran the torch loop")
+    require("--mirror" in extra or not ctx.mirror_builds,
             f"{label}: the host mirror was built under --mirror auto")
     lines = run_log.lines[n_lines:]
     counts["closure_calls"] = closure_calls(lines)
+    counts["hash_exports"] = len(ctx.hash_exports)
     walls = next(line for line in lines if "stage walls:" in line)
     print(f"{label}: CLI wall {wall:.3f} s; {walls}")
     for line in lines:
@@ -542,7 +585,15 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=()):
     print(f"{label}: torch.cuda.max_memory_allocated() "
           f"{torch.cuda.max_memory_allocated()} bytes")
     print(f"{label}: host-mirror builds (to_sorted_arrays calls) "
-          f"{len(mirror_builds)}")
+          f"{len(ctx.mirror_builds)} sorted store, "
+          f"{len(ctx.hash_exports)} hash table")
+    if ctx.hash_grows:
+        print(f"{label}: hash table grows to {ctx.hash_grows} slots")
+    if ctx.lookup_waves:
+        waves = sorted(ctx.lookup_waves)
+        print(f"{label}: {len(waves)} directional lookup waves of "
+              f"{waves[0]}-{waves[-1]} queries (median "
+              f"{waves[len(waves) // 2]})")
     print(f"{label}: kernel launches {counts}", flush=True)
 
     want = sorted(f for f in os.listdir(oracle) if f.endswith(".fasta"))
@@ -642,6 +693,184 @@ def kernel_phase(torch, np, card: str, kernels) -> dict:
     return record
 
 
+def first_batch_kmers(torch, np):
+    """The port's canonical k-mers of the FASTQ's first HASH_READS reads,
+    as one ingest batch of the CLI hands them to the table (flat, with
+    the sentinels of invalid windows), and the count of valid ones."""
+    from sharkmer_tpu_torch.io import native
+    from sharkmer_tpu_torch.ops.encoding import canonical_kmers
+
+    require(native.available(), "the native FASTQ reader did not build")
+    with native.NativeFastqReader(FASTQ) as reader:
+        codes, _ = reader.read_batch(HASH_READS)
+    require(codes.shape[0] == HASH_READS,
+            f"read {codes.shape[0]} of {HASH_READS} reads in one batch")
+    kmers, valid = canonical_kmers(
+        torch.from_numpy(np.ascontiguousarray(codes)).cuda(), K)
+    return kmers.reshape(-1).contiguous(), int(valid.sum())
+
+
+def table_rows(torch, keys, counts):
+    """A table's occupied (key, u32 count) rows in key order: what the
+    mirror and the checkpoint read, whatever the slot layout."""
+    from sharkmer_tpu_torch.kernels.hash import as_u32
+
+    occupied = keys != INT64_MAX
+    sorted_keys, order = torch.sort(keys[occupied])
+    return sorted_keys, as_u32(counts[occupied][order])
+
+
+def same_rows(torch, name: str, got, want, what: str) -> tuple[int, int]:
+    """Exact equality of two tables' rows; (max abs count error, rows)."""
+    gk, gc = table_rows(torch, *got)
+    wk, wc = table_rows(torch, *want)
+    require(torch.equal(gk, wk), f"{name}: keys differ from plain on {what}")
+    err = int((gc - wc).abs().max()) if gc.numel() else 0
+    require(err == 0, f"{name}: counts differ from plain on {what} "
+            f"(max abs err {err})")
+    return err, gk.numel()
+
+
+def touched_sectors(torch, keys) -> tuple[int, int]:
+    """The 32 B sectors of a table's keys (4 slots) and of its counts (8
+    slots) that hold at least one key: what an insert reads and writes."""
+    slots = torch.nonzero(keys != INT64_MAX).reshape(-1)
+    return (torch.unique_consecutive(slots >> 2).numel(),
+            torch.unique_consecutive(slots >> 3).numel())
+
+
+def hash_phase(torch, np, card: str, latency: dict) -> dict:
+    """``hash_insert`` and ``hash_lookup`` against ``insert_plain`` and
+    ``lookup_plain`` on the card, on one real ingest batch: the batch into
+    a fresh 2^27-slot table, the batch again (all hits), the rehash of a
+    2^26-slot table holding it into 2^27 slots; directional lookups, a
+    LOOKUP_WAVE wave and LOOKUP_MANY queries, half of them random keys.
+    The tables must hold equal rows (the slot layouts may differ: the
+    kernel's claims race); lookups must be equal. Median CUDA-event ms,
+    kernel timed between two plain runs; each insert on a fresh table
+    reset outside the timed span. An insert's time includes the wait for
+    its overflow flag (a few us)."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    kmers, n_valid = first_batch_kmers(torch, np)
+    n = kmers.numel()
+
+    def fresh(cap):
+        return (torch.full((cap,), INT64_MAX, dtype=torch.int64,
+                           device="cuda"),
+                torch.zeros(cap, dtype=torch.int32, device="cuda"))
+
+    def reset(table):
+        table[0].fill_(INT64_MAX)
+        table[1].zero_()
+
+    def timed(kernel, plain, reset_kernel=None, reset_plain=None, reps=10):
+        plain_ms = median_ms(torch, plain, 1, reset_plain)
+        ms = median_ms(torch, kernel, reps, reset_kernel)
+        plain_ms = (plain_ms + median_ms(torch, plain, 1, reset_plain)) / 2
+        return ms, plain_ms
+
+    kern, plain = fresh(HASH_CAP), fresh(HASH_CAP)
+    record = {}
+    what = (f"{HASH_READS} reads' {n} k-mers ({n_valid} valid) into "
+            f"{HASH_CAP} slots")
+    for rnd in ("fresh", "hits"):
+        hk.hash_insert(*kern, kmers)
+        hk.insert_plain(*plain, kmers)
+        torch.cuda.synchronize()
+        err, distinct = same_rows(torch, "hash_insert", kern, plain,
+                                  f"{what}, {rnd}")
+        total = int(hk.as_u32(kern[1]).sum())
+        rounds = 1 if rnd == "fresh" else 2
+        require(total == rounds * n_valid,
+                f"hash_insert: n_total {total} != {rounds} x {n_valid}")
+        record[rnd] = (err, distinct)
+    err, distinct = record.pop("fresh")
+    # each entry read once; each key sector and count sector that holds a
+    # key read and written once (hits: the key sectors only read)
+    key_sectors, count_sectors = touched_sectors(torch, kern[0])
+    fresh_bytes = 8 * n + 64 * (key_sectors + count_sectors)
+    hit_bytes = 8 * n + 32 * key_sectors + 64 * count_sectors
+    hits_ms, hits_plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
+                                   lambda: hk.insert_plain(*plain, kmers))
+    ms, plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
+                         lambda: hk.insert_plain(*plain, kmers),
+                         lambda: reset(kern), lambda: reset(plain))
+    print(f"hash_insert: exact on {what}: {distinct} keys, n_total "
+          f"{n_valid}; median {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain; "
+          f"all hits {hits_ms:.4f} ms vs {hits_plain_ms:.4f} ms on {card}",
+          flush=True)
+    insert = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": None,  # no torch op inserts into a hash table
+              **byte_bound(fresh_bytes), "entries": n, "distinct": distinct,
+              "key_sectors": key_sectors, "count_sectors": count_sectors,
+              "hits_ms": hits_ms, "hits_plain_ms": hits_plain_ms,
+              "hits_bound_ms": hit_bytes / HBM_BYTES_PER_MS}
+    del plain
+    torch.cuda.empty_cache()
+
+    # the rehash of a grow: a 2^26-slot table holding the batch into 2^27
+    src = fresh(HASH_CAP // 2)
+    hk.hash_insert(*src, kmers)
+    new_k, new_p = fresh(HASH_CAP), fresh(HASH_CAP)
+    hk.hash_insert(*new_k, *src)
+    hk.insert_plain(*new_p, *src)
+    torch.cuda.synchronize()
+    same_rows(torch, "hash_insert", new_k, new_p, "the rehash")
+    same_rows(torch, "hash_insert", new_k, src, "the rehash (source rows)")
+    rehash_ms, rehash_plain_ms = timed(
+        lambda: hk.hash_insert(*new_k, *src),
+        lambda: hk.insert_plain(*new_p, *src),
+        lambda: reset(new_k), lambda: reset(new_p), reps=5)
+    # the source's slots read once; the new table's sectors as above
+    rehash_bytes = 12 * src[0].numel() + 64 * sum(
+        touched_sectors(torch, new_k[0]))
+    print(f"hash_insert: exact on the rehash of {src[0].numel()} slots into "
+          f"{HASH_CAP}; median {rehash_ms:.4f} ms kernel vs "
+          f"{rehash_plain_ms:.4f} ms plain on {card}", flush=True)
+    insert.update(rehash_ms=rehash_ms, rehash_plain_ms=rehash_plain_ms,
+                  rehash_bound_ms=rehash_bytes / HBM_BYTES_PER_MS)
+    del src, new_k, new_p
+    torch.cuda.empty_cache()
+
+    # directional queries: half the batch's k-mers (half of those in
+    # reverse-complement form), half random keys
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    valid = kmers[kmers != INT64_MAX]
+    lookups = {}
+    for n_q in (LOOKUP_WAVE, LOOKUP_MANY):
+        pick = valid[torch.randint(0, valid.numel(), (n_q // 2,),
+                                   device="cuda", generator=gen)]
+        pick[::2] = revcomp(pick[::2], K)
+        absent = torch.randint(0, 1 << (2 * K), (n_q - n_q // 2,),
+                               device="cuda", generator=gen)
+        q = torch.cat([pick, absent])
+        result = compare(torch, "hash_lookup",
+                         lambda: hk.hash_lookup(*kern, q, K),
+                         lambda: hk.lookup_plain(*kern, q, K), 20, card,
+                         f"{n_q} directional queries, half random")
+        found = int((hk.hash_lookup(*kern, q, K) != 0).sum())
+        require(found >= n_q // 2, f"hash_lookup: {found} of {n_q} found")
+        require(torch.equal(hk.hash_lookup(*kern, pick), hk.lookup_plain(
+            *kern, pick)), "hash_lookup: canonical lookups differ")
+        # query in, count out; a key sector per query, a count sector per
+        # hit; one dependent chain: the query (L2), its key slot and its
+        # count (DRAM)
+        result.update(byte_bound(12 * n_q + 32 * n_q + 32 * found),
+                      latency_bound_ms=(latency["l2_ns"]
+                                        + 2 * latency["dram_ns"]) / 1e6,
+                      queries=n_q, found=found)
+        lookups[n_q] = result
+    lookup = dict(lookups[LOOKUP_WAVE], many_ms=lookups[LOOKUP_MANY]["ms"],
+                  many_plain_ms=lookups[LOOKUP_MANY]["plain_ms"],
+                  many_bound_ms=lookups[LOOKUP_MANY]["bound_ms"])
+    del kern, kmers, valid
+    torch.cuda.empty_cache()
+    return {"hash_insert": insert, "hash_lookup": lookup}
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "sharkmer_tpu_torch")),
             f"no sharkmer_tpu_torch package beside {__file__}")
@@ -653,6 +882,8 @@ def main() -> int:
 
     from sharkmer_tpu_torch.io import native
     from sharkmer_tpu_torch.kernels import build, closure, probe, run_scan, stitch
+    from sharkmer_tpu_torch.kernels import hash as hash_kernels
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
     from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
 
     t_start = time.monotonic()
@@ -687,7 +918,9 @@ def main() -> int:
                    "run_starts": run_scan.run_starts,
                    "probe_rows": probe.probe_rows,
                    "stitch_rows": stitch.stitch_rows,
-                   "reach_closure": closure.reach_closure}
+                   "reach_closure": closure.reach_closure,
+                   "hash_insert": hash_kernels.hash_insert,
+                   "hash_lookup": hash_kernels.hash_lookup}
 
         phase("3. kernels vs plain PyTorch at the main path's shapes")
         latency = load_latency(torch)
@@ -707,25 +940,33 @@ def main() -> int:
         os.makedirs(OUT_DIR, exist_ok=True)
         run_log = _RunLog()
         logging.getLogger().addHandler(run_log)
-        mirror_builds = []
-        to_sorted_arrays = SortedKmerStore.to_sorted_arrays
+        ctx = types.SimpleNamespace(
+            torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
+            plain_closures=[], hash_exports=[], hash_grows=[],
+            lookup_waves=[])
 
-        def counted_mirror(self, *args, **kwargs):
-            mirror_builds.append(1)
-            return to_sorted_arrays(self, *args, **kwargs)
+        def counted(cls, name, event):
+            """Wrap ``cls.name`` to append ``event(args)`` per call."""
+            original = getattr(cls, name)
 
-        SortedKmerStore.to_sorted_arrays = counted_mirror
+            def wrapper(*args, **kwargs):
+                out = original(*args, **kwargs)
+                event(args)
+                return out
+
+            setattr(cls, name, wrapper)
+
+        counted(SortedKmerStore, "to_sorted_arrays",
+                lambda a: ctx.mirror_builds.append(1))
+        counted(KmerTable, "to_sorted_arrays",
+                lambda a: ctx.hash_exports.append(1))
+        counted(KmerTable, "_grow",
+                lambda a: ctx.hash_grows.append(a[0].capacity))
+        counted(KmerTable, "lookup_directional",
+                lambda a: ctx.lookup_waves.append(len(a[1])))
         # on the card the closure must never fall back to its torch loop
-        plain_closure = closure.closure_plain
-
-        plain_closures = []
-
-        def counted_plain(*args, **kwargs):
-            plain_closures.append(1)
-            return plain_closure(*args, **kwargs)
-
-        closure.closure_plain = counted_plain
-        ctx = (torch, kernels, run_log, mirror_builds, plain_closures)
+        counted(closure, "closure_plain",
+                lambda a: ctx.plain_closures.append(1))
         os.environ.pop("SHARKMER_MAX_AGG", None)
         os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
         runs = {"default": drive_main_path(ctx, "default", 1_000_000)}
@@ -748,6 +989,42 @@ def main() -> int:
 
         phase("7. main path: 4M reads, default drain budget")
         runs["4M"] = drive_main_path(ctx, "4M", 4_000_000)
+
+        phase("8. hash kernels vs plain PyTorch on one ingest batch")
+        record.update(hash_phase(torch, np, card, latency))
+
+        phase("9. main path: 1M reads, --backend hash (host mirror), "
+              "--save-table")
+        if os.path.exists(CHECKPOINT):
+            os.remove(CHECKPOINT)
+        runs["hash"] = drive_main_path(
+            ctx, "hash", 1_000_000,
+            ("--backend", "hash", "--save-table", CHECKPOINT))
+        require(os.path.exists(CHECKPOINT), f"no checkpoint at {CHECKPOINT}")
+        print(f"checkpoint {os.path.relpath(CHECKPOINT, HERE)}: "
+              f"{os.path.getsize(CHECKPOINT)} bytes")
+        print(f"sPCR wall: {spcr_wall(runs['hash'][1]):.3f} s on the hash "
+              f"table's host mirror (phase 9) vs "
+              f"{spcr_wall(runs['default'][1]):.3f} s on the sorted store's "
+              f"reach closure (phase 4)", flush=True)
+
+        phase("10. main path: 1M reads, --backend hash --mirror device")
+        runs["hash_device"] = drive_main_path(
+            ctx, "hash_device", 1_000_000,
+            ("--backend", "hash", "--mirror", "device"))
+
+        phase("11. --load-table of phase 9's checkpoint, no FASTQ: "
+              "sorted backend (reach), then hash backend")
+        runs["load_sorted"] = drive_main_path(
+            ctx, "load_sorted", 1_000_000, ("--load-table", CHECKPOINT),
+            fastq=False)
+        runs["load_hash"] = drive_main_path(
+            ctx, "load_hash", 1_000_000,
+            ("--load-table", CHECKPOINT, "--backend", "hash"), fastq=False)
+
+        phase("12. main path: 4M reads, --backend hash")
+        runs["hash_4M"] = drive_main_path(ctx, "hash_4M", 4_000_000,
+                                          ("--backend", "hash"))
     finally:
         if synth is not None:
             synth.kill()
@@ -757,11 +1034,27 @@ def main() -> int:
                 "run_starts": ("default", "max_agg_2^24"),
                 "probe_rows": ("default", "max_agg_2^24"),
                 "stitch_rows": ("max_agg_2^24", "4M"),
-                "reach_closure": ("default", "max_agg_2^24", "4M")}
+                "reach_closure": ("default", "max_agg_2^24", "4M",
+                                  "load_sorted"),
+                "hash_insert": ("hash", "load_hash", "hash_4M"),
+                "hash_lookup": ("hash_device",)}
     for name, labels in required.items():
         for label in labels:
             require(runs[label][0][name] >= 1,
                     f"{name} was not launched in the {label} run")
+    # the hash runs never touch the sorted store's kernels
+    for label in ("hash", "hash_device", "hash_4M"):
+        for name in ("run_ends", "run_starts", "probe_rows", "stitch_rows",
+                     "reach_closure"):
+            require(runs[label][0][name] == 0,
+                    f"{name} was launched in the {label} run")
+    # KmerTable.to_sorted_arrays: the host mirror once under --mirror
+    # auto (phase 9 also exports the checkpoint), never under device
+    for label, exports in (("hash", 2), ("hash_device", 0),
+                           ("load_hash", 1), ("hash_4M", 1)):
+        got = runs[label][0]["hash_exports"]
+        require(got == exports, f"{label}: KmerTable.to_sorted_arrays ran "
+                f"{got} times, not {exports}")
     for label in required["reach_closure"]:
         counts = runs[label][0]
         calls = counts["closure_calls"]

@@ -1,9 +1,10 @@
 """The counting engine: stream reads -> device count table -> spectra.
 
-Torch port of ``sharkmer_tpu.engine`` on the sorted backend and one
-device (``device``): the same round-robin chunk routing, per-chunk
-stores, in-order consolidation and count-conservation invariants.
-``backend="hash"`` and ``n_shards > 1`` are not ported yet.
+Torch port of ``sharkmer_tpu.engine`` on one device (``device``), with
+the sorted backend (``ops/sorted_store.py``) or the hash backend
+(``ops/hashtable.py``): the same round-robin chunk routing, per-chunk
+tables, in-order consolidation and count-conservation invariants.
+``n_shards > 1`` is not ported yet.
 
 Pipeline parity with the reference
 (upstream sharkmer src/io.rs:366-595, 977-1161):
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from .ops import encoding
+from .ops.hashtable import KmerTable
 from .ops.sorted_store import SortedKmerStore, _default_max_agg, _next_pow2
 
 log = logging.getLogger("sharkmer")
@@ -67,9 +69,10 @@ class CountingEngine:
     device: torch.device
     n_chunks: int = 0
     histo_max: int = 10000
+    initial_capacity: int = 1 << 20  # the hash backend's first table
     n_shards: int = 1  # >1 is not ported yet
-    backend: str = "sorted"  # "hash" is not ported yet
-    table: SortedKmerStore = field(init=False)
+    backend: str = "sorted"  # "sorted" (sort/scan runs) | "hash" (probe table)
+    table: SortedKmerStore | KmerTable = field(init=False)
     stats: IngestStats = field(init=False)
     _chunk_tables: list = field(init=False)
     _chunk_pending: list[list] = field(init=False)
@@ -84,13 +87,11 @@ class CountingEngine:
                 "--n-shards > 1 is not ported to sharkmer_tpu_torch yet "
                 "(ROADMAP: modules to port, parallel/)"
             )
-        if self.backend != "sorted":
-            raise NotImplementedError(
-                f"--backend {self.backend} is not ported to "
-                f"sharkmer_tpu_torch yet (ROADMAP: modules to port, the "
-                f"hash backend)"
-            )
-        self.table = SortedKmerStore(self.k, self.device)
+        if self.backend == "hash":
+            self.table = KmerTable.create(self.k, self.initial_capacity,
+                                          self.device)
+        else:
+            self.table = SortedKmerStore(self.k, self.device)
         self.stats = IngestStats()
         n = max(self.n_chunks, 1)
         self._chunk_tables = [None] * n
@@ -112,12 +113,18 @@ class CountingEngine:
         n_chunks tables fit the same footprint as one master)."""
         if self._chunk_tables[c] is None:
             n = max(self.n_chunks, 1)
-            # each chunk's raw buffer gets a fair share of the drain
-            # budget so all chunk buffers together cost one master's
-            agg = _next_pow2(max(1 << 16, _default_max_agg(self.device) // n))
-            self._chunk_tables[c] = SortedKmerStore(
-                self.k, self.device, max_agg=agg
-            )
+            if self.backend == "hash":
+                cap = 1 << max(12, (self.initial_capacity // n - 1).bit_length())
+                self._chunk_tables[c] = KmerTable.create(self.k, cap,
+                                                         self.device)
+            else:
+                # each chunk's raw buffer gets a fair share of the drain
+                # budget so all chunk buffers together cost one master's
+                agg = _next_pow2(max(1 << 16,
+                                     _default_max_agg(self.device) // n))
+                self._chunk_tables[c] = SortedKmerStore(
+                    self.k, self.device, max_agg=agg
+                )
         return self._chunk_tables[c]
 
     def _push_pending(self, c: int, item, n_reads: int) -> None:

@@ -4,7 +4,8 @@ Torch port of ``sharkmer_tpu.main``: the same pipeline around the port's
 ``CountingEngine``, on the device ``SHARKMER_TORCH_DEVICE`` names
 (``device.py``). Reference: upstream sharkmer src/main.rs. The linear
 stage order and every early-exit / validation hook are preserved.
-``--save-table`` and ``--load-table`` are not ported yet.
+``--load-table`` replaces ingest and consolidation with a checkpoint
+load (``io/checkpoint.py``); its load time is logged as the ingest wall.
 """
 
 from __future__ import annotations
@@ -55,12 +56,6 @@ def main(argv: list[str] | None = None) -> int:
 
 def _run(args, argv, start_run) -> int:
     handle_early_exits(args)
-    if args.save_table or args.load_table:
-        raise ValueError(
-            "--save-table and --load-table are not yet ported to "
-            "sharkmer_tpu_torch (ROADMAP: modules to port, checkpoint "
-            "interop)"
-        )
 
     pcr_runs = collect_pcr_params(args)
     apply_tuning_overrides(args, pcr_runs)
@@ -87,12 +82,35 @@ def _run(args, argv, start_run) -> int:
         cache_config = CacheConfig.new(args.cache_dir)
         log.info("Read cache: %s", cache_config.cache_dir)
 
-    # ---- Pass 1: ingest + count -------------------------------------------
+    # ---- Pass 1: ingest + count (or load a checkpoint) ----------------------
+    capacity = args.table_capacity or (1 << 22)
     engine = CountingEngine(
         k=k, device=default_device(), n_chunks=args.chunks,
-        histo_max=args.histo_max, n_shards=args.n_shards,
-        backend=args.backend,
+        histo_max=args.histo_max, initial_capacity=capacity,
+        n_shards=args.n_shards, backend=args.backend,
     )
+
+    if args.load_table:
+        from .io.checkpoint import load_table
+
+        load_start = time.monotonic()
+        table, saved_stats = load_table(args.load_table, engine.device,
+                                        args.n_shards, backend=args.backend)
+        synchronize(engine.device)
+        walls = {"ingest": time.monotonic() - load_start, "consolidate": 0.0}
+        if table.k != k:
+            log.info(
+                "Checkpoint was built with k=%d; using it (CLI -k %d ignored)",
+                table.k, k,
+            )
+            k = table.k
+        engine.table = table
+        engine.k = k
+        if saved_stats:
+            for field_name, value in saved_stats.items():
+                setattr(engine.stats, field_name, value)
+        return _run_post_count(args, argv, start_run, engine, sample,
+                               directory, k, pcr_runs, None, walls)
 
     max_reads = args.max_reads or 0
     ingest_start = time.monotonic()
@@ -158,6 +176,12 @@ def _run(args, argv, start_run) -> int:
                     "very low coverage or contamination. sPCR results may "
                     "be unreliable.", singleton_rate * 100.0,
                 )
+
+    # ---- checkpoint ----------------------------------------------------------
+    if args.save_table:
+        from .io.checkpoint import save_table
+
+        save_table(args.save_table, engine.table, engine.stats)
 
     # ---- Pass 2 reread (read threading, opt-in) ----------------------------
     threading_reads = None

@@ -1,0 +1,216 @@
+"""Open-addressed canonical k-mer count table: the hash backend.
+
+Torch port of ``sharkmer_tpu.ops.hashtable.KmerTable`` (``--backend
+hash``): a pair of flat device tensors with linear probing, filled and
+probed by the ``hash_insert`` and ``hash_lookup`` kernels
+(``kernels/hash.py``, ``csrc/hash_table.cu``).
+
+* ``keys``: int64 ``[capacity]`` (``ops/keys.py``), ``SENTINEL``
+  (INT64_MAX, the device form of ``EMPTY``) for an empty slot.
+* ``counts``: int32 ``[capacity]`` holding the bit pattern of the JAX
+  table's uint32 counts (12 B a slot in all). An add is modulo 2^32, and
+  a count at or above ``SAT_THRESHOLD`` (0xE0000000) takes no further
+  add: after 0xE0000000 and then 5 the count stays 0xE0000000 (a freeze,
+  not a clamp; ``kernels.hash.SAT_THRESHOLD``). Histograms, sums,
+  compares and the numpy boundary widen the counts with ``& 0xFFFFFFFF``
+  to int64 (``kernels.hash.as_u32``).
+
+Unlike the JAX class, the table updates in place (``insert_kmers``
+returns ``self``; a grow replaces the tensors). The slot layout never
+reaches an output: the host mirror, the checkpoint and every primer
+consumer sort what they read, so the kernel's racing claims are exact
+where it counts. Left out as TPU workarounds: the power-of-two padding
+of ``lookup_directional`` and ``prefix_scan``'s fixed-size output with
+its grow-and-retry (``torch.nonzero`` has no fixed size).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.hash import as_u32, hash_insert, hash_lookup
+from .encoding import canonical_kmers, revcomp_kmer
+from .histogram import histogram as _histogram
+from .histogram import revcomp
+from .keys import SENTINEL, keys_to_device, keys_to_numpy
+
+SCAN_CHUNK = 1 << 24  # slots per step of a primer scan's sweep
+MAX_LOAD = 0.70  # occupancy a grow keeps the table under (JAX's max_load)
+
+
+def _member(sorted_set: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    if not sorted_set.numel():
+        return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    idx = torch.searchsorted(sorted_set, values)
+    idx = torch.clamp(idx, max=sorted_set.shape[0] - 1)
+    return sorted_set[idx] == values
+
+
+@dataclass
+class KmerTable:
+    """The device-resident hash count table."""
+
+    k: int
+    keys: torch.Tensor  # int64 [capacity], SENTINEL = empty
+    counts: torch.Tensor  # int32 [capacity], u32 bit patterns
+    device: torch.device
+
+    @staticmethod
+    def create(k: int, capacity: int, device) -> "KmerTable":
+        if capacity <= 0 or capacity & (capacity - 1):
+            raise ValueError("capacity must be a power of two")
+        device = torch.device(device)
+        keys = torch.full((capacity,), SENTINEL, dtype=torch.int64,
+                          device=device)
+        counts = torch.zeros(capacity, dtype=torch.int32, device=device)
+        return KmerTable(k, keys, counts, device)
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    def _keys(self, kmers) -> torch.Tensor:
+        if isinstance(kmers, torch.Tensor):
+            if kmers.dtype != torch.int64:
+                raise TypeError(f"keys must be int64, got {kmers.dtype}")
+            return kmers.to(self.device).reshape(-1).contiguous()
+        return keys_to_device(kmers, self.device)
+
+    def _amounts(self, counts) -> torch.Tensor:
+        """u32 amounts as int32 bit patterns: numpy (cast to uint32) or
+        an int32 tensor of bit patterns (another table's counts)."""
+        if isinstance(counts, torch.Tensor):
+            if counts.dtype != torch.int32:
+                raise TypeError(f"counts must be int32, got {counts.dtype}")
+            return counts.to(self.device).reshape(-1).contiguous()
+        arr = np.ascontiguousarray(np.asarray(counts, np.uint32)).reshape(-1)
+        return torch.from_numpy(arr.view(np.int32)).to(self.device)
+
+    # -- ingest --------------------------------------------------------------
+
+    def insert_kmers(self, kmers, counts=None) -> "KmerTable":
+        """Insert a flat batch of canonical k-mers (SENTINEL entries
+        skipped), each adding 1 or its ``counts`` entry."""
+        kmers = self._keys(kmers)
+        amounts = None if counts is None else self._amounts(counts)
+        self._maybe_grow(kmers.shape[0])
+        hash_insert(self.keys, self.counts, kmers, amounts)
+        return self
+
+    def ingest_codes(self, codes) -> "KmerTable":
+        """Encode a [n, width] uint8 code batch and insert its canonical
+        k-mers."""
+        codes = torch.as_tensor(np.asarray(codes, np.uint8), device=self.device)
+        kmers, _ = canonical_kmers(codes, self.k)
+        return self.insert_kmers(kmers.reshape(-1))
+
+    def merge_from(self, other: "KmerTable") -> "KmerTable":
+        """Fold another table's slots into this one: the insert kernel
+        skips its empty slots."""
+        if other.k != self.k:
+            raise ValueError("k mismatch in merge_from")
+        return self.insert_kmers(other.keys, other.counts)
+
+    def _maybe_grow(self, incoming: int) -> None:
+        """The JAX growth rule: double while the occupancy plus every
+        incoming entry (sentinels too) would pass ``MAX_LOAD``."""
+        n_unique = self.n_unique()
+        while n_unique + incoming > MAX_LOAD * self.capacity:
+            self._grow()
+
+    def _grow(self) -> None:
+        """Rehash into twice the capacity through the insert kernel."""
+        keys = torch.full((2 * self.capacity,), SENTINEL, dtype=torch.int64,
+                          device=self.device)
+        counts = torch.zeros(2 * self.capacity, dtype=torch.int32,
+                             device=self.device)
+        hash_insert(keys, counts, self.keys, self.counts)
+        self.keys, self.counts = keys, counts
+
+    # -- queries -------------------------------------------------------------
+
+    def lookup(self, queries) -> np.ndarray:
+        """Counts (uint32) of canonical queries, 0 when absent."""
+        out = hash_lookup(self.keys, self.counts, self._keys(queries))
+        return out.cpu().numpy().view(np.uint32)
+
+    def lookup_directional(self, queries) -> np.ndarray:
+        """Counts (uint32) of directional k-mers, canonicalized (min of
+        the k-mer and its revcomp) in the kernel."""
+        out = hash_lookup(self.keys, self.counts, self._keys(queries), self.k)
+        return out.cpu().numpy().view(np.uint32)
+
+    def histogram(self, histo_max: int) -> np.ndarray:
+        """uint64 vector of length histo_max+2 (Histogram::get_vector)."""
+        return _histogram(as_u32(self.counts), histo_max)
+
+    def n_unique(self) -> int:
+        return int((self.keys != SENTINEL).sum())
+
+    def n_total(self) -> int:
+        return int(as_u32(self.counts).sum())
+
+    def max_count(self) -> int:
+        occupied = self.keys != SENTINEL
+        return int(torch.where(occupied, as_u32(self.counts), 0).max())
+
+    def prefix_scan(self, oligos, oligo_len: int, min_count: int):
+        """All table k-mers whose start matches an oligo (either strand),
+        with count >= ``min_count``, as numpy (kmers, counts): a forward
+        hit has the oligo as its high 2L bits; a reverse hit, taken only
+        where the forward test missed, has an oligo's revcomp as its low
+        2L bits and is reported as its revcomp, so the primer sits at
+        the k-mer start. In slot order."""
+        if oligo_len <= 0 or oligo_len >= self.k:
+            raise ValueError(
+                f"oligo length {oligo_len} out of range for k={self.k}"
+            )
+        oligos = np.asarray(oligos, dtype=np.uint64)
+        fwd = keys_to_device(np.sort(oligos), self.device)
+        rc = keys_to_device(np.array(
+            sorted({revcomp_kmer(int(o), oligo_len) for o in oligos}),
+            dtype=np.uint64), self.device)
+        hit = torch.empty(self.capacity, dtype=torch.bool, device=self.device)
+        is_rc = torch.empty_like(hit)
+        # the masks in sweeps of SCAN_CHUNK slots: the gene threads scan
+        # concurrently, and whole-table int64 temporaries would take
+        # several GB a scan; one nonzero at the end, one device sync
+        for lo in range(0, self.capacity, SCAN_CHUNK):
+            keys = self.keys[lo : lo + SCAN_CHUNK]
+            counts = as_u32(self.counts[lo : lo + SCAN_CHUNK])
+            occupied = (keys != SENTINEL) & (counts >= min_count)
+            fwd_hit = occupied & _member(fwd, keys >> 2 * (self.k - oligo_len))
+            low = keys & ((1 << 2 * oligo_len) - 1)
+            rc_hit = occupied & ~fwd_hit & _member(rc, low)
+            hit[lo : lo + SCAN_CHUNK] = fwd_hit | rc_hit
+            is_rc[lo : lo + SCAN_CHUNK] = rc_hit
+        idx = torch.nonzero(hit).reshape(-1)
+        kmers = self.keys[idx]
+        # revcomp only the hits, not the whole table
+        kmers = torch.where(is_rc[idx], revcomp(kmers, self.k), kmers)
+        counts = as_u32(self.counts[idx])
+        return keys_to_numpy(kmers), counts.cpu().numpy().astype(np.uint32)
+
+    # -- host export ---------------------------------------------------------
+
+    def to_sorted_arrays(
+        self, min_count: int = 1
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Host mirror: (sorted unique kmers uint64, counts uint32),
+        restricted to rows with count >= ``min_count`` when it is above
+        1 (as the JAX table: at 1 every occupied slot is kept), filtered
+        and sorted on the device."""
+        keep = self.keys != SENTINEL
+        counts = as_u32(self.counts)
+        if min_count > 1:
+            keep &= counts >= min_count
+        keys, order = torch.sort(self.keys[keep])
+        counts = counts[keep][order]
+        return keys_to_numpy(keys), counts.cpu().numpy().astype(np.uint32)
+
+    def to_dict(self) -> dict[int, int]:
+        keys, counts = self.to_sorted_arrays()
+        return dict(zip(keys.tolist(), counts.tolist()))

@@ -101,9 +101,5 @@ def test_cli_mirror_modes_identical(tmp_path, monkeypatch, fastq_18s, mirror):
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, fastq_18s):
     monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
     out = str(tmp_path / "o")
-    assert torch_main([fastq_18s, "-s", "s", "-o", out,
-                       "--save-table", str(tmp_path / "t.npz")]) == 1
-    with pytest.raises(NotImplementedError):
-        torch_main([fastq_18s, "-s", "s", "-o", out, "--backend", "hash"])
     with pytest.raises(NotImplementedError):
         torch_main([fastq_18s, "-s", "s", "-o", out, "--n-shards", "2"])

@@ -103,6 +103,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import sharkmer_tpu_torch.main, sharkmer_tpu_torch.engine\n"
         "import sharkmer_tpu_torch.ops.sorted_store\n"
+        "import sharkmer_tpu_torch.ops.hashtable, sharkmer_tpu_torch.io.checkpoint\n"
         "import sharkmer_tpu_torch.pcr.spcr, sharkmer_tpu_torch.tools.synth\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'sharkmer_tpu.')))\n"
