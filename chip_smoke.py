@@ -59,20 +59,39 @@ Phases, each printed on its own lines; every check raises on failure:
 11. ``--load-table`` of phase 9's checkpoint with no FASTQ: into the
     sorted backend (which then runs sPCR on the reach closure) and into
     the hash backend, each held to the 1M oracle;
-12. the 4M cell with ``--backend hash`` (the table grows to 2^28 slots).
+12. the 4M cell with ``--backend hash`` (the table grows to 2^28 slots);
+13. phase 3's closure checks on the same table split by owner into 4
+    shards of one power-of-two width (``shard_table``, the layout of
+    ``ShardedSortedStore``): ``reach_closure`` and ``probe_rows`` route
+    each candidate to its owner shard, held to their plain versions;
+14. the 1M cell with ``--n-shards 4`` (``ShardedSortedStore``, its reach
+    closure owner-routed);
+15. the 1M cell with ``--n-shards 4 --backend hash`` (``ShardedKmerTable``);
+16. ``--load-table`` of phase 9's checkpoint with ``--n-shards 4``: into a
+    ``ShardedKmerTable``, as in the JAX package;
+17. the chunked spectra: ``--chunks 10`` on the first 250k reads, sorted
+    and hash, at 1 and 4 shards, against the JAX package's ``.histo``,
+    ``.final.histo``, FASTA and ``stats.yaml`` in ``oracles/``.
+
+Each run's output directory must hold exactly its oracle's files, each
+byte-identical but ``stats.yaml`` (equal but for ``command`` and
+``peak_memory_bytes``).
 
 Each kernel's launch count is reset just before each main-path run and
 read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
-warm starts) must launch in phases 4 and 5, ``stitch_rows`` in phases 5
-and 7, ``reach_closure`` in phases 4, 5, 7 and 11 (sorted) at least once
-per closure call (the run's ``closures`` sPCR phase), where
+warm starts) must launch in phases 4 and 5 (``run_starts`` also in 14
+and in 17's sorted runs), ``stitch_rows`` in phases 5 and 7,
+``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14 and 17 (sorted) at
+least once per closure call (the run's ``closures`` sPCR phase), where
 ``probe_rows`` may launch no more often than that, the plain closure
-loop must never run and the sorted store's host mirror must not be
-built. ``hash_insert`` must launch in phases 9, 11 (hash) and 12,
-``hash_lookup`` in phase 10, and none of the sorted store's kernels in
-phases 9, 10 and 12; ``KmerTable.to_sorted_arrays`` (the host mirror)
-runs once in phases 9 (plus once for the checkpoint), 11 (hash) and 12,
-and never in phase 10. A logged
+loop must never run and no sorted store's host mirror may be built
+(sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
+12, 15, 16 and 17 (hash), ``hash_lookup`` in phase 10, and none of the
+sorted store's kernels in those hash runs; ``KmerTable.to_sorted_arrays``
+(the host mirror) runs once in phases 9 (plus once for the checkpoint),
+11 (hash), 12 and 17 (hash, 1 shard), never in phase 10, and
+``ShardedKmerTable``'s once in phases 15, 16 and 17 (hash, 4 shards). A
+logged
 ``sPCR device-index build failed`` or ``reach warmup failed`` (the copied
 ``pcr/counts.py`` swallows those errors and falls back to the host
 mirror) fails the run. The last two lines of standard output are the
@@ -105,6 +124,7 @@ KERNEL_N = 1 << 27
 PART_ROWS = 1 << 26
 GENOME_BASES = 1 << 20
 CLOSURE_PARTS = 21
+CLOSURE_SHARDS = 4  # the owner-routed layout of phase 13
 CLOSURE_MC = 2  # the closures' count floor
 HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
 STITCH_SHAPE = (2048, 1 << 16)
@@ -113,6 +133,13 @@ HASH_CAP = 1 << 27  # the 1M cell's final hash table
 LOOKUP_WAVE = 4096
 LOOKUP_MANY = 1 << 20
 CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
+N_SHARDS = "4"  # --n-shards of phases 14-17
+# the chunked spectra's oracle: the JAX package's --chunks 10 outputs on
+# the first CHUNK_READS reads (one synthesis slab of tools/synth.py, so
+# the same reads in every file of that seed)
+CHUNK_READS = 250_000
+CHUNK_ORACLE = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0",
+                            f"chunks10_{CHUNK_READS}")
 K = 19
 INT64_MAX = (1 << 63) - 1
 VARYING_STATS = ("command", "peak_memory_bytes")
@@ -296,11 +323,9 @@ def bucket_bytes(torch, side, cand) -> int:
 
 
 def routed_bytes(torch, table, cand) -> int:
-    """``bucket_bytes`` of each candidate in the partition its key range
-    routes it to."""
-    from sharkmer_tpu_torch.kernels import probe
-
-    part = probe.route_plain(table.first_keys, cand)
+    """``bucket_bytes`` of each candidate in the partition the table
+    routes it to (its key range, or its owner shard)."""
+    part = table.route(cand)
     return sum(bucket_bytes(torch, side, cand[part == i])
                for i, side in enumerate(table.sidecars))
 
@@ -357,6 +382,29 @@ def cut_table(torch, keys, counts, n_real: int, n_parts: int, k: int):
     return probe.PartTable(sidecars, bases)
 
 
+def shard_table(torch, keys, counts, n_real: int, n_shards: int, k: int):
+    """The table's real rows split by owner (``kernels/hash.owner``) into
+    ``n_shards`` sorted shards of one power-of-two width, sentinel tails,
+    global row id ``shard * width + row``: the layout of
+    ``ShardedSortedStore`` and its owner-routed ``PartTable``."""
+    from sharkmer_tpu_torch.kernels import probe
+    from sharkmer_tpu_torch.kernels.hash import owner
+    from sharkmer_tpu_torch.ops import reach
+
+    own = owner(keys[:n_real], n_shards)
+    sizes = torch.bincount(own, minlength=n_shards).tolist()
+    width = 1 << (max(sizes) - 1).bit_length()
+    sidecars = []
+    for s, size in enumerate(sizes):
+        pk = torch.full((width,), INT64_MAX, dtype=torch.int64, device="cuda")
+        pc = torch.zeros(width, dtype=torch.int64, device="cuda")
+        mine = own == s
+        pk[:size], pc[:size] = keys[:n_real][mine], counts[:n_real][mine]
+        sidecars.append(reach.build_sidecar(pk, pc, k))
+    return probe.PartTable(sidecars, [s * width for s in range(n_shards)],
+                           by_owner=True)
+
+
 def closure_bytes(torch, table, c0, pre_ids, log_sorted, state, boundary,
                   k: int) -> int:
     """The least bytes of one closure call: c0 and pre_ids read once; the
@@ -386,21 +434,39 @@ def closure_bytes(torch, table, c0, pre_ids, log_sorted, state, boundary,
             + 8 * boundary.numel() + 32)
 
 
-def closure_phase(torch, np, card: str, latency: dict) -> dict:
-    """``reach_closure`` against ``closure_plain`` on a 2^26-row table,
-    as one partition and cut into CLOSURE_PARTS; ``probe_rows`` against
-    ``probe_rows_plain`` at the warm start's PRE_W keys. Each with its
-    byte bound and its latency bound (``chain_ms``)."""
+def key_range_layouts(torch):
+    """Phase 3's layouts of the closure table: one partition, and
+    CLOSURE_PARTS key-range partitions."""
+    from sharkmer_tpu_torch.kernels import probe
+    from sharkmer_tpu_torch.ops import reach
+
+    return {"1 partition": lambda keys, counts, n_real: probe.PartTable(
+                [reach.build_sidecar(keys, counts, K)], [0]),
+            f"{CLOSURE_PARTS} partitions": lambda keys, counts, n_real:
+                cut_table(torch, keys, counts, n_real, CLOSURE_PARTS, K)}
+
+
+def owner_layouts(torch):
+    """Phase 13's layout of the closure table: CLOSURE_SHARDS owner
+    shards."""
+    return {f"{CLOSURE_SHARDS} shards": lambda keys, counts, n_real:
+            shard_table(torch, keys, counts, n_real, CLOSURE_SHARDS, K)}
+
+
+def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
+    """``reach_closure`` against ``closure_plain`` on a 2^26-row table in
+    each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable);
+    ``probe_rows`` against ``probe_rows_plain`` at the warm start's PRE_W
+    keys. Each with its byte bound and its latency bound
+    (``chain_ms``)."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
 
     start = time.monotonic()
     keys, counts, n_real, fwd = closure_table(np, torch, PART_ROWS, K)
-    tables = {"1 partition": probe.PartTable(
-                  [reach.build_sidecar(keys, counts, K)], [0]),
-              f"{CLOSURE_PARTS} partitions": cut_table(
-                  torch, keys, counts, n_real, CLOSURE_PARTS, K)}
+    tables = {name: build(keys, counts, n_real)
+              for name, build in layouts.items()}
     torch.cuda.synchronize()
     print(f"closure table: {PART_ROWS} rows, {n_real} keys, "
           f"{GENOME_BASES}-base genome; built in "
@@ -538,18 +604,21 @@ def closure_calls(lines) -> int:
 
 
 def drive_main_path(ctx, label: str, n_reads: int, extra=(),
-                    fastq: bool = True):
+                    fastq: bool = True, oracle: str | None = None):
     """One CLI run of the cnidaria cell at ``n_reads`` (from the FASTQ,
-    or, with ``fastq=False``, from the checkpoint that ``extra`` names);
-    returns (the kernels' launch counts and the run's hash-table
-    counters, its stage-walls line)."""
+    or, with ``fastq=False``, from the checkpoint that ``extra`` names),
+    held to the JAX package's outputs in ``oracle`` (by default the
+    committed cell of ``n_reads``): the same file names, every file
+    byte-identical but ``stats.yaml``, equal but for VARYING_STATS.
+    Returns (the kernels' launch counts and the run's table counters, its
+    stage-walls line)."""
     import yaml
 
     from sharkmer_tpu_torch.main import main
 
     torch, kernels, run_log = ctx.torch, ctx.kernels, ctx.run_log
     sample = f"synthetic-seed0_{n_reads}"
-    oracle = os.path.join(ORACLES, str(n_reads))
+    oracle = oracle or os.path.join(ORACLES, str(n_reads))
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
     argv = ["-s", sample, "-k", str(K), "-t", "8", "-o", out,
@@ -559,7 +628,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     torch.cuda.reset_peak_memory_stats()
     n_lines = len(run_log.lines)
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
-                   ctx.hash_grows, ctx.lookup_waves):
+                   ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves):
         events.clear()
     for fn in kernels.values():
         fn.launches = 0
@@ -577,6 +646,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     lines = run_log.lines[n_lines:]
     counts["closure_calls"] = closure_calls(lines)
     counts["hash_exports"] = len(ctx.hash_exports)
+    counts["shard_exports"] = len(ctx.shard_exports)
     walls = next(line for line in lines if "stage walls:" in line)
     print(f"{label}: CLI wall {wall:.3f} s; {walls}")
     for line in lines:
@@ -586,7 +656,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
           f"{torch.cuda.max_memory_allocated()} bytes")
     print(f"{label}: host-mirror builds (to_sorted_arrays calls) "
           f"{len(ctx.mirror_builds)} sorted store, "
-          f"{len(ctx.hash_exports)} hash table")
+          f"{len(ctx.hash_exports)} hash table, "
+          f"{len(ctx.shard_exports)} sharded hash table")
     if ctx.hash_grows:
         print(f"{label}: hash table grows to {ctx.hash_grows} slots")
     if ctx.lookup_waves:
@@ -596,23 +667,27 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
               f"{waves[len(waves) // 2]})")
     print(f"{label}: kernel launches {counts}", flush=True)
 
-    want = sorted(f for f in os.listdir(oracle) if f.endswith(".fasta"))
-    got = sorted(f for f in os.listdir(out) if f.endswith(".fasta"))
-    require(len(want) == 7 and got == want,
-            f"{label}: FASTA files {got} != {want}")
+    stats_name = f"{sample}.stats.yaml"
+    want, got = sorted(os.listdir(oracle)), sorted(os.listdir(out))
+    fasta = [f for f in want if f.endswith(".fasta")]
+    require(got == want and len(fasta) == 7 and stats_name in want,
+            f"{label}: output files {got} != {want}")
     for name in want:
+        if name == stats_name:
+            continue
         with open(os.path.join(oracle, name), "rb") as a, \
                 open(os.path.join(out, name), "rb") as b:
             require(a.read() == b.read(), f"{label}: {name} differs")
-    stats_name = f"{sample}.stats.yaml"
     with open(os.path.join(oracle, stats_name)) as a, \
             open(os.path.join(out, stats_name)) as b:
         sa, sb = yaml.safe_load(a), yaml.safe_load(b)
     for key in VARYING_STATS:
         sa.pop(key), sb.pop(key)
     require(sa == sb, f"{label}: stats.yaml differs: {sb} != {sa}")
-    print(f"{label}: 7/7 FASTA byte-identical, stats.yaml equal "
-          f"(but for {', '.join(VARYING_STATS)})", flush=True)
+    others = [f for f in want if f != stats_name and f not in fasta]
+    print(f"{label}: 7/7 FASTA"
+          f"{''.join(', ' + f for f in others)} byte-identical, stats.yaml "
+          f"equal (but for {', '.join(VARYING_STATS)})", flush=True)
     return counts, walls
 
 
@@ -885,6 +960,8 @@ def main() -> int:
     from sharkmer_tpu_torch.kernels import hash as hash_kernels
     from sharkmer_tpu_torch.ops.hashtable import KmerTable
     from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+    from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 
     t_start = time.monotonic()
     phase("1. card")
@@ -928,7 +1005,8 @@ def main() -> int:
               f"L2, {latency['dram_ns']:.1f} ns from DRAM on {card}",
               flush=True)
         record = kernel_phase(torch, np, card, kernels)
-        record.update(closure_phase(torch, np, card, latency))
+        record.update(closure_phase(torch, np, card, latency,
+                                    key_range_layouts(torch)))
 
         phase("4. main path: 1M reads, cnidaria panel, default drain budget")
         start = time.monotonic()
@@ -942,8 +1020,8 @@ def main() -> int:
         logging.getLogger().addHandler(run_log)
         ctx = types.SimpleNamespace(
             torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
-            plain_closures=[], hash_exports=[], hash_grows=[],
-            lookup_waves=[])
+            plain_closures=[], hash_exports=[], shard_exports=[],
+            hash_grows=[], lookup_waves=[])
 
         def counted(cls, name, event):
             """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -958,8 +1036,12 @@ def main() -> int:
 
         counted(SortedKmerStore, "to_sorted_arrays",
                 lambda a: ctx.mirror_builds.append(1))
+        counted(ShardedSortedStore, "to_sorted_arrays",
+                lambda a: ctx.mirror_builds.append(1))
         counted(KmerTable, "to_sorted_arrays",
                 lambda a: ctx.hash_exports.append(1))
+        counted(ShardedKmerTable, "to_sorted_arrays",
+                lambda a: ctx.shard_exports.append(1))
         counted(KmerTable, "_grow",
                 lambda a: ctx.hash_grows.append(a[0].capacity))
         counted(KmerTable, "lookup_directional",
@@ -1025,36 +1107,83 @@ def main() -> int:
         phase("12. main path: 4M reads, --backend hash")
         runs["hash_4M"] = drive_main_path(ctx, "hash_4M", 4_000_000,
                                           ("--backend", "hash"))
+
+        phase(f"13. owner-routed reach_closure and probe_rows vs plain "
+              f"PyTorch on {CLOSURE_SHARDS} shards")
+        record.update(closure_phase(torch, np, card, latency,
+                                    owner_layouts(torch)))
+
+        phase(f"14. main path: 1M reads, --n-shards {N_SHARDS} (sorted, "
+              f"reach closure)")
+        runs["shards"] = drive_main_path(ctx, "shards", 1_000_000,
+                                         ("--n-shards", N_SHARDS))
+        print(f"sPCR wall: {spcr_wall(runs['shards'][1]):.3f} s on "
+              f"{N_SHARDS} shards (phase 14) vs "
+              f"{spcr_wall(runs['default'][1]):.3f} s on the single store "
+              f"(phase 4)", flush=True)
+
+        phase(f"15. main path: 1M reads, --n-shards {N_SHARDS} --backend hash")
+        runs["shards_hash"] = drive_main_path(
+            ctx, "shards_hash", 1_000_000,
+            ("--n-shards", N_SHARDS, "--backend", "hash"))
+
+        phase(f"16. --load-table of phase 9's checkpoint with --n-shards "
+              f"{N_SHARDS} (a ShardedKmerTable)")
+        runs["shards_load"] = drive_main_path(
+            ctx, "shards_load", 1_000_000,
+            ("--load-table", CHECKPOINT, "--n-shards", N_SHARDS), fastq=False)
+
+        phase(f"17. chunked spectra: {CHUNK_READS} reads, --chunks 10, both "
+              f"backends at --n-shards 1 and {N_SHARDS}")
+        for backend in ("sorted", "hash"):
+            for shards in ("1", N_SHARDS):
+                label = f"chunks_{backend}_{shards}"
+                runs[label] = drive_main_path(
+                    ctx, label, CHUNK_READS,
+                    ("--chunks", "10", "--backend", backend,
+                     "--n-shards", shards),
+                    oracle=CHUNK_ORACLE)
     finally:
         if synth is not None:
             synth.kill()
             synth.wait()
 
+    chunked_sorted = ("chunks_sorted_1", f"chunks_sorted_{N_SHARDS}")
+    chunked_hash = ("chunks_hash_1", f"chunks_hash_{N_SHARDS}")
     required = {"run_ends": ("default", "max_agg_2^24"),
-                "run_starts": ("default", "max_agg_2^24"),
+                "run_starts": ("default", "max_agg_2^24", "shards",
+                               *chunked_sorted),
                 "probe_rows": ("default", "max_agg_2^24"),
                 "stitch_rows": ("max_agg_2^24", "4M"),
                 "reach_closure": ("default", "max_agg_2^24", "4M",
-                                  "load_sorted"),
-                "hash_insert": ("hash", "load_hash", "hash_4M"),
+                                  "load_sorted", "shards", *chunked_sorted),
+                "hash_insert": ("hash", "load_hash", "hash_4M",
+                                "shards_hash", "shards_load", *chunked_hash),
                 "hash_lookup": ("hash_device",)}
     for name, labels in required.items():
         for label in labels:
             require(runs[label][0][name] >= 1,
                     f"{name} was not launched in the {label} run")
     # the hash runs never touch the sorted store's kernels
-    for label in ("hash", "hash_device", "hash_4M"):
+    for label in ("hash", "hash_device", "hash_4M", "shards_hash",
+                  "shards_load", *chunked_hash):
         for name in ("run_ends", "run_starts", "probe_rows", "stitch_rows",
                      "reach_closure"):
             require(runs[label][0][name] == 0,
                     f"{name} was launched in the {label} run")
-    # KmerTable.to_sorted_arrays: the host mirror once under --mirror
-    # auto (phase 9 also exports the checkpoint), never under device
-    for label, exports in (("hash", 2), ("hash_device", 0),
-                           ("load_hash", 1), ("hash_4M", 1)):
-        got = runs[label][0]["hash_exports"]
-        require(got == exports, f"{label}: KmerTable.to_sorted_arrays ran "
-                f"{got} times, not {exports}")
+    # KmerTable.to_sorted_arrays (ShardedKmerTable's with --n-shards): the
+    # host mirror once under --mirror auto (phase 9 also exports the
+    # checkpoint), never under device; --load-table with --n-shards loads
+    # into a ShardedKmerTable, whatever --backend says
+    for label, exports, shard_exports in (
+            ("hash", 2, 0), ("hash_device", 0, 0), ("load_hash", 1, 0),
+            ("hash_4M", 1, 0), ("shards_hash", 0, 1), ("shards_load", 0, 1),
+            ("chunks_hash_1", 1, 0), (f"chunks_hash_{N_SHARDS}", 0, 1)):
+        got = (runs[label][0]["hash_exports"],
+               runs[label][0]["shard_exports"])
+        require(got == (exports, shard_exports),
+                f"{label}: KmerTable and ShardedKmerTable.to_sorted_arrays "
+                f"ran {got} times, not {(exports, shard_exports)}")
     for label in required["reach_closure"]:
         counts = runs[label][0]
         calls = counts["closure_calls"]
@@ -1064,16 +1193,22 @@ def main() -> int:
                 f"{calls} closure calls")
 
     parts = f"{CLOSURE_PARTS} partitions"
+    shards = f"{CLOSURE_SHARDS} shards"
     records = []
     for name, (source, replaces) in KERNELS.items():
         if name == "probe_rows":
-            # a warm start's keys over CLOSURE_PARTS; on one beside it
+            # a warm start's keys over CLOSURE_PARTS; on one partition and
+            # owner-routed over CLOSURE_SHARDS beside it
             one = record["probe_rows, 1 partition"]
+            owned = record[f"probe_rows, {shards}"]
             rec = dict(record[f"probe_rows, {parts}"], **latency,
-                       one_part_ms=one["ms"], one_part_plain_ms=one["plain_ms"])
+                       one_part_ms=one["ms"], one_part_plain_ms=one["plain_ms"],
+                       shards_ms=owned["ms"], shards_plain_ms=owned["plain_ms"],
+                       shards_bound_ms=owned["bound_ms"],
+                       shards_max_abs_err=owned["max_abs_err"])
         elif name == "reach_closure":
-            # a narrow call on one partition; on CLOSURE_PARTS and a wide
-            # call beside it
+            # a narrow call on one partition; on CLOSURE_PARTS, a wide
+            # call, and owner-routed calls over CLOSURE_SHARDS beside it
             narrow, wide = record[f"narrow, {parts}"], record["wide, 1 partition"]
             rec = dict(record["narrow, 1 partition"], **latency,
                        parts_ms=narrow["ms"], parts_plain_ms=narrow["plain_ms"],
@@ -1082,6 +1217,11 @@ def main() -> int:
                        wide_ms=wide["ms"], wide_plain_ms=wide["plain_ms"],
                        wide_bound_ms=wide["bound_ms"],
                        wide_latency_bound_ms=wide["latency_bound_ms"])
+            for call in ("narrow", "wide", "pre"):
+                owned = record[f"{call}, {shards}"]
+                rec.update({f"shards_{call}_{key}": owned[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "latency_bound_ms",
+                    "max_abs_err", "n_vis", "iters")})
         else:
             rec = record[name]
         records.append({

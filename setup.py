@@ -12,6 +12,7 @@ setup(
     },
     entry_points={"console_scripts": ["sharkmer=sharkmer_tpu.main:main",
         "sharkmer-viewer=sharkmer_tpu.viewer:main",
-        "sharkmer-torch=sharkmer_tpu_torch.main:main"]},
+        "sharkmer-torch=sharkmer_tpu_torch.main:main",
+        "sharkmer-torch-viewer=sharkmer_tpu_torch.viewer:main"]},
     python_requires=">=3.10",
 )

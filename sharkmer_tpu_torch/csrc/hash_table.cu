@@ -4,8 +4,9 @@
 // The table is two flat arrays of `cap` slots (a power of two): int64 keys,
 // INT64_MAX (the port's SENTINEL) for an empty slot, and uint32 counts kept
 // as the bit pattern of an int32 tensor. A key's home slot is
-// mix64(key) & (cap - 1), the SplitMix64 finalizer; collisions probe
-// linearly. A slot goes from empty to a key once and never changes again.
+// mix64(key) & (cap - 1), the SplitMix64 finalizer (mix64.cuh, shared with
+// the owner route of a sharded table); collisions probe linearly. A slot
+// goes from empty to a key once and never changes again.
 //
 // They replace the XLA programs of sharkmer_tpu/ops/hashtable.py (no Pallas
 // kernel there: torch has no op that inserts into or probes a hash table):
@@ -57,23 +58,17 @@
 
 #include <cuda_runtime.h>
 
+#include "mix64.cuh"
+
 namespace {
 
 using u64 = unsigned long long;
+using shk::mix64;
 
 constexpr u64 kEmpty = 0x7FFFFFFFFFFFFFFFull;  // ops/keys.py SENTINEL
 constexpr unsigned int kSat = 0xE0000000u;      // SAT_THRESHOLD
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
-
-__device__ __forceinline__ u64 mix64(u64 x) {
-  x ^= x >> 33;
-  x *= 0xFF51AFD7ED558CCDull;
-  x ^= x >> 33;
-  x *= 0xC4CEB9FE1A85EC53ull;
-  x ^= x >> 33;
-  return x;
-}
 
 // Reverse complement of a k-mer of k 2-bit bases (< 4^k): complement is NOT,
 // base reversal swaps 2-bit groups, nibbles, bytes, half-words and words,

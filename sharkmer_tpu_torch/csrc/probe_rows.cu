@@ -1,8 +1,9 @@
 // Bucket probe of the sPCR reach closure over a partitioned table, for
 // Hopper (sm_90a).
 //
-// For each candidate key c: route c to the partition whose key range holds
-// it (the last one whose first key is <= c), then, with that partition's
+// For each candidate key c: route c to its partition (probe_rows.cuh route:
+// the last one whose first key is <= c, or in a sharded table the shard
+// that owns c), then, with that partition's
 //   b      = min(c >> shift, n_lut - 2)        (the LUT bucket of c)
 //   out[c] = base + the largest row i in [lut[b], lut[b + 1]) with
 //            keys[i] == c and counts[i] >= min_count, or INT32_MAX when there
@@ -30,8 +31,8 @@
 //     probe is exact for every k and every min_count.
 // Bound: latency of the scattered bucket reads. A bucket holds at most 32
 // rows once build_sidecar has sized the LUT, so a candidate costs its route
-// (cached descriptor loads), then two dependent loads (LUT, then one
-// key/count segment).
+// (cached descriptor loads, or the owner's mix64 arithmetic), then two
+// dependent loads (LUT, then one key/count segment).
 //
 // Plain C interface, bound with ctypes: the entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -50,13 +51,13 @@ constexpr int kWarps = kThreads / 32;  // candidates per block
 
 __global__ void __launch_bounds__(kThreads)
 probe_rows_kernel(const shk::PartDesc* __restrict__ parts, int n_parts,
-                  const int64_t* __restrict__ cand, int64_t min_count,
-                  int* __restrict__ out, int n_cand) {
+                  int n_shards, const int64_t* __restrict__ cand,
+                  int64_t min_count, int* __restrict__ out, int n_cand) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (c >= n_cand) return;  // the whole warp leaves together
   const int64_t key = cand[c];
-  const shk::PartDesc& p = parts[shk::route_part(parts, n_parts, key)];
+  const shk::PartDesc& p = parts[shk::route(parts, n_parts, n_shards, key)];
   const int best = shk::group_max<32>(shk::probe_lane<32>(
       p.keys, p.counts, p.lut, p.n_lut, p.shift, key, min_count, lane));
   if (lane == 0) out[c] = best >= 0 ? p.base + best : shk::kInf;
@@ -66,14 +67,15 @@ probe_rows_kernel(const shk::PartDesc* __restrict__ parts, int n_parts,
 
 extern "C" {
 
-int shk_probe_rows(const void* parts, int n_parts, const int64_t* cand,
-                   int64_t min_count, int* out, int n_cand,
-                   cudaStream_t stream) {
+// n_shards: 0 routes by key range, > 0 by owner shard (== n_parts).
+int shk_probe_rows(const void* parts, int n_parts, int n_shards,
+                   const int64_t* cand, int64_t min_count, int* out,
+                   int n_cand, cudaStream_t stream) {
   if (n_cand <= 0) return 0;
   const int blocks = (n_cand + kWarps - 1) / kWarps;
   probe_rows_kernel<<<blocks, kThreads, 0, stream>>>(
-      static_cast<const shk::PartDesc*>(parts), n_parts, cand, min_count,
-      out, n_cand);
+      static_cast<const shk::PartDesc*>(parts), n_parts, n_shards, cand,
+      min_count, out, n_cand);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mix64.cuh"
+
 namespace shk {
 
 constexpr int64_t kSentinel = INT64_MAX;
@@ -79,8 +81,8 @@ __device__ __forceinline__ int group_max(int v) {
 }
 
 // The partition whose key range holds `key`: the last one whose first key is
-// <= key (partition 0 takes every smaller key). Global row ids follow
-// partition key order, so this is the only partition that can hold it.
+// <= key (partition 0 takes every smaller key). In a key-range table this is
+// the only partition that can hold it.
 __device__ __forceinline__ int route_part(const PartDesc* __restrict__ parts,
                                           int n_parts, int64_t key) {
   int lo = 0, hi = n_parts - 1;
@@ -93,6 +95,17 @@ __device__ __forceinline__ int route_part(const PartDesc* __restrict__ parts,
     }
   }
   return lo;
+}
+
+// The partition that probes `key`. n_shards == 0: a key-range table
+// (route_part). n_shards > 0: a sharded table whose partition s is shard s of
+// n_shards (== n_parts) and holds exactly the keys that owner() gives s
+// (kernels/probe.py PartTable.route). Under owner routing ascending global row
+// ids are not ascending keys: ops/reach.py sorts a closure's rows by key.
+__device__ __forceinline__ int route(const PartDesc* __restrict__ parts,
+                                     int n_parts, int n_shards, int64_t key) {
+  return n_shards > 0 ? owner(static_cast<uint64_t>(key), n_shards)
+                      : route_part(parts, n_parts, key);
 }
 
 }  // namespace shk

@@ -17,7 +17,8 @@
 //   * each level: expand every live walker to its 8 de Bruijn neighbours
 //     (4 suffix, then 4 prefix shifts), carrying the reverse complements by
 //     shifts; route each canonical candidate to the partition whose key range
-//     holds it; probe that partition's bucket (probe_rows.cuh, the code of
+//     holds it, or in a sharded table to its owner shard (probe_rows.cuh
+//     route); probe that partition's bucket (probe_rows.cuh, the code of
 //     the probe_rows kernel); claim the row with atomicOr on the visited
 //     bitmap (a clear old bit is a first visit, so a row is claimed once per
 //     call, however many candidates reach it); a block-wide counter compacts
@@ -64,6 +65,7 @@ constexpr int kPerRound = kThreads / kGroup;  // candidates per round
 struct Closure {
   const shk::PartDesc* parts;
   int n_parts;
+  int n_shards;  // 0: key-range routing; > 0: owner routing over n_parts
   const int64_t* c0;  // root keys, directional, sentinel-padded
   int n_c0;
   const int* pre_ids;  // warm-start global row ids, INT32_MAX-padded
@@ -139,7 +141,8 @@ __device__ __forceinline__ void run_level(const Closure& a, State& st,
         key_rc = static_cast<int64_t>(c < c_rc ? c_rc : c);
       }
     }
-    const shk::PartDesc& p = a.parts[shk::route_part(a.parts, a.n_parts, key)];
+    const shk::PartDesc& p =
+        a.parts[shk::route(a.parts, a.n_parts, a.n_shards, key)];
     const int row = shk::group_max<kGroup>(shk::probe_lane<kGroup>(
         p.keys, p.counts, p.lut, p.n_lut, p.shift, key, a.min_count, glane));
     if (glane == 0 && row >= 0) {
@@ -235,14 +238,15 @@ __global__ void __launch_bounds__(kThreads, 1) reach_closure_kernel(Closure a) {
 
 extern "C" {
 
-int shk_reach_closure(const void* parts, int n_parts, const int64_t* c0,
-                      int n_c0, const int* pre_ids, int n_pre,
+int shk_reach_closure(const void* parts, int n_parts, int n_shards,
+                      const int64_t* c0, int n_c0, const int* pre_ids, int n_pre,
                       int64_t min_count, int k, int depth, int f_cap,
                       int f_narrow, unsigned* bitmap, int64_t* front, int* log,
                       int64_t* boundary, int64_t* state, cudaStream_t stream) {
   Closure a;
   a.parts = static_cast<const shk::PartDesc*>(parts);
   a.n_parts = n_parts;
+  a.n_shards = n_shards;
   a.c0 = c0;
   a.n_c0 = n_c0;
   a.pre_ids = pre_ids;

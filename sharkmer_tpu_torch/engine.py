@@ -2,9 +2,10 @@
 
 Torch port of ``sharkmer_tpu.engine`` on one device (``device``), with
 the sorted backend (``ops/sorted_store.py``) or the hash backend
-(``ops/hashtable.py``): the same round-robin chunk routing, per-chunk
-tables, in-order consolidation and count-conservation invariants.
-``n_shards > 1`` is not ported yet.
+(``ops/hashtable.py``), each also sharded by owner over ``n_shards``
+logical shards on that device (``parallel/``): the same round-robin
+chunk routing, per-chunk tables, in-order consolidation and
+count-conservation invariants.
 
 Pipeline parity with the reference
 (upstream sharkmer src/io.rs:366-595, 977-1161):
@@ -45,6 +46,8 @@ import torch
 from .ops import encoding
 from .ops.hashtable import KmerTable
 from .ops.sorted_store import SortedKmerStore, _default_max_agg, _next_pow2
+from .parallel.sharded_table import ShardedKmerTable
+from .parallel.sorted_sharded import ShardedSortedStore
 
 log = logging.getLogger("sharkmer")
 
@@ -70,9 +73,9 @@ class CountingEngine:
     n_chunks: int = 0
     histo_max: int = 10000
     initial_capacity: int = 1 << 20  # the hash backend's first table
-    n_shards: int = 1  # >1 is not ported yet
+    n_shards: int = 1  # >1: the table sharded by owner (parallel/)
     backend: str = "sorted"  # "sorted" (sort/scan runs) | "hash" (probe table)
-    table: SortedKmerStore | KmerTable = field(init=False)
+    table: object = field(init=False)  # a store of ops/ or parallel/
     stats: IngestStats = field(init=False)
     _chunk_tables: list = field(init=False)
     _chunk_pending: list[list] = field(init=False)
@@ -83,11 +86,12 @@ class CountingEngine:
     def __post_init__(self):
         self.device = torch.device(self.device)
         if self.n_shards > 1:
-            raise NotImplementedError(
-                "--n-shards > 1 is not ported to sharkmer_tpu_torch yet "
-                "(ROADMAP: modules to port, parallel/)"
-            )
-        if self.backend == "hash":
+            # the JAX package shards over the devices that exist; the
+            # port's shards are logical, all on `device`, and its
+            # results do not depend on the shard count
+            local = max(1 << 10, self.initial_capacity // self.n_shards)
+            self.table = self._sharded_table(1 << (local - 1).bit_length())
+        elif self.backend == "hash":
             self.table = KmerTable.create(self.k, self.initial_capacity,
                                           self.device)
         else:
@@ -113,7 +117,11 @@ class CountingEngine:
         n_chunks tables fit the same footprint as one master)."""
         if self._chunk_tables[c] is None:
             n = max(self.n_chunks, 1)
-            if self.backend == "hash":
+            if self.n_shards > 1:
+                local = max(1 << 8, (self.initial_capacity // self.n_shards) // n)
+                self._chunk_tables[c] = self._sharded_table(
+                    1 << (local - 1).bit_length())
+            elif self.backend == "hash":
                 cap = 1 << max(12, (self.initial_capacity // n - 1).bit_length())
                 self._chunk_tables[c] = KmerTable.create(self.k, cap,
                                                          self.device)
@@ -126,6 +134,14 @@ class CountingEngine:
                     self.k, self.device, max_agg=agg
                 )
         return self._chunk_tables[c]
+
+    def _sharded_table(self, local_capacity: int):
+        """An empty sharded table of the engine's backend."""
+        if self.backend == "hash":
+            return ShardedKmerTable.create(self.k, self.n_shards,
+                                           local_capacity, self.device)
+        return ShardedSortedStore.create(self.k, self.n_shards,
+                                         local_capacity, self.device)
 
     def _push_pending(self, c: int, item, n_reads: int) -> None:
         """Queue reads for chunk c; flush to its device table at the cap

@@ -11,8 +11,9 @@ package:
   engine's ``IngestStats`` fields).
 
 Loading re-inserts the rows into a fresh table on ``device`` in slabs
-of 2^22, so the target's backend and capacity are free to differ from
-the saved one's. Sharded tables (``n_shards > 1``) are not ported yet.
+of 2^22, so the target's backend, capacity and shard count are free to
+differ from the saved one's. As in the JAX package, ``n_shards > 1``
+loads into a ``ShardedKmerTable`` whatever ``backend`` says.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 from ..ops.encoding import KMER_SENTINEL
 from ..ops.hashtable import KmerTable
 from ..ops.sorted_store import SortedKmerStore
+from ..parallel.sharded_table import ShardedKmerTable
 
 log = logging.getLogger("sharkmer")
 
@@ -55,11 +57,6 @@ def load_table(path: str, device, n_shards: int = 1,
 
     Returns (table, stats_dict | None).
     """
-    if n_shards > 1:
-        raise NotImplementedError(
-            "--n-shards > 1 is not ported to sharkmer_tpu_torch yet "
-            "(ROADMAP: modules to port, parallel/)"
-        )
     with np.load(path, allow_pickle=False) as data:
         keys = data["keys"]
         counts = data["counts"]
@@ -76,7 +73,10 @@ def load_table(path: str, device, n_shards: int = 1,
     if capacity is None:
         capacity = max(1 << 14, 1 << int(len(kmers) / 0.6).bit_length())
 
-    if backend == "hash":
+    if n_shards > 1:
+        local = 1 << max(10, (capacity // n_shards - 1).bit_length())
+        table = ShardedKmerTable.create(k, n_shards, local, device)
+    elif backend == "hash":
         table = KmerTable.create(k, capacity, device)
     else:
         table = SortedKmerStore(k, device)

@@ -48,13 +48,17 @@ def closure_log_w(depth: int, f_cap: int) -> int:
 
 
 def lookup_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
-    """(global row id | INF32) per candidate key (int32): every partition
-    probes every candidate, as the JAX package's ``lookup`` does."""
+    """(global row id | INF32) per candidate key (int32). A key-range
+    table: every partition probes every candidate, as the JAX package's
+    ``lookup`` does. An owner-routed table: each shard probes the
+    candidates it owns (``table.route``), as the kernel does."""
     probe_w = max(s.probe_blocks for s in table.sidecars)
     ids = torch.full(cand.shape, INF32, dtype=torch.int32, device=cand.device)
-    for sc, base in zip(table.sidecars, table.bases):
+    part = table.route(cand) if table.n_shards else None
+    for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
+        mine = cand if part is None else torch.where(part == i, cand, SENTINEL)
         row = probe_window_plain(sc.keys1d, sc.counts1d, sc.lut, sc.shift,
-                                 cand, min_count, probe_w)
+                                 mine, min_count, probe_w)
         ids = torch.where(row >= 0, row + base, ids)
     return ids
 
@@ -217,7 +221,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_shk_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.shk_reach_closure.argtypes = [
-            p, i, p, i, p, i, ctypes.c_int64, i, i, i, i, p, p, p, p, p, p,
+            p, i, i, p, i, p, i, ctypes.c_int64, i, i, i, i, p, p, p, p, p, p,
         ]
         lib.shk_reach_closure.restype = ctypes.c_int
         lib._shk_bound = True
@@ -261,7 +265,8 @@ def reach_closure(table: PartTable, c0, pre_ids, min_count: int, k: int,
     with torch.cuda.device(c0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_reach_closure(
-            desc.data_ptr(), desc.shape[0], c0.data_ptr(), c0.shape[0],
+            desc.data_ptr(), desc.shape[0], table.n_shards, c0.data_ptr(),
+            c0.shape[0],
             pre_ids.data_ptr() if n_pre else None, n_pre, int(min_count), k,
             depth, f_cap, f_narrow, out["bitmap"].data_ptr(),
             out["front"].data_ptr(), out["log"].data_ptr(),

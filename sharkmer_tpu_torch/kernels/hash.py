@@ -40,6 +40,7 @@ U32 = 0xFFFF_FFFF
 _M1 = 0xFF51_AFD7_ED55_8CCD - (1 << 64)
 _M2 = 0xC4CE_B9FE_1A85_EC53 - (1 << 64)
 _LOW31 = (1 << 31) - 1
+_LOW24 = (1 << 24) - 1
 
 
 def mix64(x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +51,15 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
     x = x ^ ((x >> 33) & _LOW31)
     x = x * _M2
     return x ^ ((x >> 33) & _LOW31)
+
+
+def owner(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The shard of ``n_shards`` that owns each key: the JAX package's
+    u64 ``(mix64(k) >> 40) % n_shards`` (``parallel/sharded_table.py``
+    ``_owner``), the high hash bits, so that the owner and a shard's
+    home slot (the low bits) stay independent. The mask makes the int64
+    ``>> 40`` logical. ``csrc/mix64.cuh`` has the device form."""
+    return ((mix64(keys) >> 40) & _LOW24) % n_shards
 
 
 def as_u32(counts: torch.Tensor) -> torch.Tensor:

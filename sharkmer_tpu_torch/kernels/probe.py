@@ -10,7 +10,10 @@ result is the global row id of that key with a count ``>= min_count``,
 or ``INF32``. The candidate's bucket ``b = min(key >> shift, len(lut) -
 2)`` bounds the search to rows ``[lut[b], lut[b + 1])`` of the partition
 (the LUT of ``ops/reach.build_sidecar``). The reach closure's warm start
-takes it; the closure's own levels probe inside ``reach_closure``.
+takes it; the closure's own levels probe inside ``reach_closure``. A
+sharded table routes by owner instead: its partitions are the shards of
+``parallel/``, and a candidate goes to the shard that owns it
+(``PartTable.route``).
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``probe_rows_plain``, the CPU path and the test oracle): per partition,
@@ -32,6 +35,7 @@ import torch
 
 from ..ops.keys import SENTINEL
 from . import build
+from .hash import owner
 
 BLOCK = 32  # rows per block of the plain version's window
 INF32 = 0x7FFF_FFFF  # "no row" in global row ids
@@ -86,18 +90,23 @@ def _check_part(sc) -> None:
 
 
 class PartTable:
-    """A partitioned table as the probes see it: per partition (ascending
-    key ranges) its sidecar (``ops/reach.PartSidecar``: sorted int64 keys
-    and counts, bucket LUT and shift, ``first_key`` the lower bound of its
-    key range) and its global row-id base. Global row ids follow partition
-    key order. ``desc`` holds the kernels' partition descriptors
-    (``csrc/probe_rows.cuh`` ``PartDesc``: six int64 words a partition)
-    on the table's device, and ``first_keys`` the partitions' first keys
-    there, both made once."""
+    """A partitioned table as the probes see it: per partition its sidecar
+    (``ops/reach.PartSidecar``: sorted int64 keys and counts, bucket LUT
+    and shift, ``first_key`` the lower bound of its key range) and its
+    global row-id base. Two routes (``route``): by key range, the
+    partitions in ascending key ranges (global row ids then follow key
+    order); or, with ``by_owner``, by owner shard, partition ``s`` holding
+    the keys that ``hash.owner`` gives ``s`` of ``len(sidecars)`` (row
+    ids then do not follow key order). ``n_shards`` is the kernels' route
+    argument (0 for key ranges). ``desc`` holds the kernels' partition
+    descriptors (``csrc/probe_rows.cuh`` ``PartDesc``: six int64 words a
+    partition) on the table's device, and ``first_keys`` the partitions'
+    first keys there, both made once."""
 
-    def __init__(self, sidecars, bases):
+    def __init__(self, sidecars, bases, by_owner: bool = False):
         self.sidecars = list(sidecars)
         self.bases = tuple(int(b) for b in bases)
+        self.n_shards = len(self.sidecars) if by_owner else 0
         self.n_rows = sum(int(s.keys1d.shape[0]) for s in self.sidecars)
         if self.n_rows >= 1 << 31:
             raise ValueError("PartTable: global row ids are int32")
@@ -111,6 +120,13 @@ class PartTable:
         self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
         self.first_keys = self.desc[:, 3].contiguous()
 
+    def route(self, cand) -> torch.Tensor:
+        """The partition each candidate probes: its owner shard
+        (``hash.owner``) or its key range (``route_plain``)."""
+        if self.n_shards:
+            return owner(cand, self.n_shards)
+        return route_plain(self.first_keys, cand)
+
 
 def route_plain(first_keys, cand) -> torch.Tensor:
     """The partition of each candidate: the last one whose first key is
@@ -121,8 +137,8 @@ def route_plain(first_keys, cand) -> torch.Tensor:
 def probe_rows_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
     """Global row id (int32) of each candidate with a count ``>=
     min_count``, else ``INF32``: each candidate probes only the partition
-    that ``route_plain`` gives it."""
-    part = route_plain(table.first_keys, cand)
+    that ``table.route`` gives it."""
+    part = table.route(cand)
     ids = torch.full(cand.shape, INF32, dtype=torch.int32, device=cand.device)
     for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
         mine = torch.where(part == i, cand, SENTINEL)
@@ -136,8 +152,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("probe_rows")
     if not getattr(lib, "_shk_bound", False):
         lib.shk_probe_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.shk_probe_rows.restype = ctypes.c_int
         lib._shk_bound = True
@@ -166,8 +182,8 @@ def probe_rows(table: PartTable, cand, min_count: int) -> torch.Tensor:
     with torch.cuda.device(cand.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_probe_rows(
-            desc.data_ptr(), desc.shape[0], cand.data_ptr(), int(min_count),
-            out.data_ptr(), n_cand, stream,
+            desc.data_ptr(), desc.shape[0], table.n_shards, cand.data_ptr(),
+            int(min_count), out.data_ptr(), n_cand, stream,
         )
     if rc != 0:
         raise RuntimeError(f"probe_rows: CUDA launch failed (cudaError {rc})")

@@ -89,6 +89,8 @@ def _run(args, argv, start_run) -> int:
         histo_max=args.histo_max, initial_capacity=capacity,
         n_shards=args.n_shards, backend=args.backend,
     )
+    if args.n_shards > 1:
+        log.info("Count table sharded over %d devices", args.n_shards)
 
     if args.load_table:
         from .io.checkpoint import load_table

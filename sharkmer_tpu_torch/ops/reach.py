@@ -15,9 +15,9 @@ table is then never built.
 Table probe: each partition gets a bucket LUT (``build_sidecar``):
 ``lut[b]`` is the first row whose key's top ``bits`` bits are >= b, so
 a candidate's rows lie in ``[lut[b], lut[b + 1])``. A candidate probes
-only the partition whose key range holds it (``first_key``): one exact
-probe for every k and every min count, with no probe plane beside the
-partition.
+only the partition whose key range holds it (``first_key``), or in a
+sharded table (``parallel/``) the shard that owns it: one exact probe for
+every k and every min count, with no probe plane beside the partition.
 
 Closure: each attempt of a call is one ``reach_closure`` launch
 (``kernels/closure.py``), which runs the JAX package's state machine
@@ -168,8 +168,10 @@ def _reach_call(table: PartTable, c0, min_count: int, k: int, depth: int,
     n_vis > OUT_W."""
     log_ids, boundary, state = reach_closure(
         table, c0, pre_ids, min_count, k, depth, f_cap, f_narrow)
-    # compact the log first (global row ids follow partition key order,
-    # so ascending ids are ascending keys), then gather a short prefix
+    # compact the log first, then gather a short prefix. Ascending ids
+    # are ascending keys only in a key-range table; nothing relies on it:
+    # the prefix holds every visited row unless n_vis > OUT_W, when
+    # _drive_closure gathers n_vis rows again, and it sorts by key
     log_sorted = torch.sort(log_ids).values
     out_w = min(OUT_W, log_sorted.shape[0])
     keys, counts = _gather_rows(table, log_sorted[:out_w])

@@ -94,6 +94,13 @@ def _next_pow2(n: int) -> int:
     return 1 << max(6, (int(n) - 1).bit_length())
 
 
+def packed_count_bits(k: int) -> int:
+    """Spare low bits of a k-mer key for packed single-key sorts (0 =
+    unusable)."""
+    bits = 64 - 2 * k
+    return bits if bits >= 20 else 0
+
+
 def _sentinels(n: int, device) -> torch.Tensor:
     return torch.full((n,), SENTINEL, dtype=torch.int64, device=device)
 
@@ -356,9 +363,7 @@ class SortedKmerStore:
         return self._resolved_max_agg() // 2
 
     def _count_bits(self) -> int:
-        """Spare low bits for packed single-key sorts (0 = unusable)."""
-        bits = 64 - 2 * self.k
-        return bits if bits >= 20 else 0
+        return packed_count_bits(self.k)
 
     def _keys(self, kmers) -> torch.Tensor:
         if isinstance(kmers, torch.Tensor):

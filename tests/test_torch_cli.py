@@ -99,7 +99,23 @@ def test_cli_mirror_modes_identical(tmp_path, monkeypatch, fastq_18s, mirror):
 
 
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, fastq_18s):
+    """Every option is ported: ``--n-shards 4`` (the sharded sorted
+    store, ``parallel/``) under ``--mirror auto`` serves the walk from
+    the owner-routed reach closure, never builds the host mirror, and
+    matches the JAX CLI's ``--n-shards 4`` (four devices of the CPU
+    mesh) byte for byte."""
+    from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
+
     monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
-    out = str(tmp_path / "o")
-    with pytest.raises(NotImplementedError):
-        torch_main([fastq_18s, "-s", "s", "-o", out, "--n-shards", "2"])
+    calls = {"reach": 0, "to_sorted_arrays": 0}
+    for name in calls:
+        original = getattr(ShardedSortedStore, name)
+
+        def counted(self, *a, _name=name, _original=original, **kw):
+            calls[_name] += 1
+            return _original(self, *a, **kw)
+
+        monkeypatch.setattr(ShardedSortedStore, name, counted)
+    jax_out, torch_out = _run_both(tmp_path, fastq_18s, ["--n-shards", "4"])
+    _assert_same_outputs(jax_out, torch_out, expect_histo=False)
+    assert calls["reach"] > 3 and calls["to_sorted_arrays"] == 0

@@ -187,11 +187,30 @@ def test_checkpoint_arrays_and_meta_equal(tmp_path, fastq_18s):
 
 
 def test_load_table_refuses_shards_and_versions(tmp_path, counting_runs):
+    """Shards are no longer refused: with ``--n-shards 4`` each package
+    loads the other's checkpoint into a ``ShardedKmerTable`` whatever
+    ``--backend`` says, and the sPCR run from it gives the counting run's
+    files; both packages' sharded tables hold the same rows. A checkpoint
+    of an unknown format version is still refused."""
+    from sharkmer_tpu.io.checkpoint import load_table as jax_load_table
     from sharkmer_tpu_torch.io.checkpoint import load_table
 
-    _, ckpt = counting_runs["torch"]
-    with pytest.raises(NotImplementedError):
-        load_table(str(ckpt), "cpu", n_shards=2)
+    for saver, loader in (("jax", "torch"), ("torch", "jax")):
+        counted, ckpt = counting_runs[saver]
+        out = _run(loader, tmp_path / f"{saver}_to_{loader}",
+                   ["--load-table", str(ckpt), "--n-shards", "4",
+                    "--backend", "sorted"])
+        _assert_same_outputs(counted, out)
+        table, stats = load_table(str(ckpt), "cpu", n_shards=4)
+        want, want_stats = jax_load_table(str(ckpt), 4)
+        assert type(table).__name__ == type(want).__name__ \
+            == "ShardedKmerTable"
+        assert table.n_shards == want.n_shards == 4
+        assert table.local_capacity == want.local_capacity
+        assert stats == want_stats
+        for got, expected in zip(table.to_sorted_arrays(),
+                                 want.to_sorted_arrays()):
+            np.testing.assert_array_equal(got, expected)
     bad = tmp_path / "v2.npz"
     np.savez_compressed(bad, keys=np.zeros(0, np.uint64),
                         counts=np.zeros(0, np.uint32),

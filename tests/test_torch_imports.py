@@ -31,7 +31,7 @@ COPIES = [
         "pcr/__init__.py", "pcr/bubble.py", "pcr/counts.py", "pcr/graph.py",
         "pcr/panels.py", "pcr/params.py", "pcr/paths.py", "pcr/prefetch.py",
         "pcr/primers.py", "pcr/pruning.py", "pcr/read_filter.py",
-        "pcr/spcr.py", "pcr/threading.py",
+        "pcr/spcr.py", "pcr/threading.py", "viewer.py",
     )
 ] + [("sharkmer_tpu_torch/tools/synth.py",
       "scripts/sharkmer_validate/synth.py")]
@@ -105,6 +105,8 @@ def test_port_imports_no_jax():
         "import sharkmer_tpu_torch.ops.sorted_store\n"
         "import sharkmer_tpu_torch.ops.hashtable, sharkmer_tpu_torch.io.checkpoint\n"
         "import sharkmer_tpu_torch.pcr.spcr, sharkmer_tpu_torch.tools.synth\n"
+        "import sharkmer_tpu_torch.parallel.sharded_reach\n"
+        "import sharkmer_tpu_torch.viewer\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'sharkmer_tpu.')))\n"
         "assert not bad, bad\n"
