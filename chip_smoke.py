@@ -46,11 +46,17 @@ Phases, each printed on its own lines; every check raises on failure:
    first drain, then drain v2 at the full 2^27 width;
 8. the hash backend's kernels against their plain versions on one real
    ingest batch (the port's canonical k-mers of the FASTQ's first 2^17
-   reads): ``hash_insert`` into a fresh 2^27-slot table, again into the
-   same table (all hits), and the rehash of a 2^26-slot table into 2^27
-   slots, each table's sorted rows equal to the plain version's (the
-   slot layouts may differ: claims race); ``hash_lookup`` on a 4096-query
-   wave and on 2^20 queries, half of them random keys, exact;
+   reads), on the 16 B slot layout: ``hash_insert`` into a fresh
+   2^27-slot table, again into the same table (all hits), the rehash of
+   a 2^26-slot table into 2^27 slots, and the batch routed by owner into
+   4 shards of 2^25 slots in one launch, each table's sorted rows (shard
+   by shard) equal to the plain version's (the slot layouts may differ:
+   claims race) and its claim counters equal to its occupied slots;
+   ``hash_lookup`` on a 4096-query wave and on 2^20 queries, half of
+   them random keys, on the one table and on the 4 shards, exact; the
+   wave also timed as the kernel alone (a CUDA graph of back-to-back
+   launches); byte bounds on the slot layout beside the two-array
+   layout's on the same slots;
 9. the 1M cell with ``--backend hash`` (``--mirror auto`` resolves to the
    host mirror: the hash table has no reach closure) and ``--save-table
    build/chip_smoke/hash_1M.npz``, held to the same oracle as phase 4;
@@ -66,7 +72,8 @@ Phases, each printed on its own lines; every check raises on failure:
     each candidate to its owner shard, held to their plain versions;
 14. the 1M cell with ``--n-shards 4`` (``ShardedSortedStore``, its reach
     closure owner-routed);
-15. the 1M cell with ``--n-shards 4 --backend hash`` (``ShardedKmerTable``);
+15. the 1M cell with ``--n-shards 4 --backend hash`` (``ShardedKmerTable``),
+    on the host mirror and with ``--mirror device`` (routed lookups);
 16. ``--load-table`` of phase 9's checkpoint with ``--n-shards 4``: into a
     ``ShardedKmerTable``, as in the JAX package;
 17. the chunked spectra: ``--chunks 10`` on the first 250k reads, sorted
@@ -86,11 +93,14 @@ least once per closure call (the run's ``closures`` sPCR phase), where
 ``probe_rows`` may launch no more often than that, the plain closure
 loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
-12, 15, 16 and 17 (hash), ``hash_lookup`` in phase 10, and none of the
-sorted store's kernels in those hash runs; ``KmerTable.to_sorted_arrays``
-(the host mirror) runs once in phases 9 (plus once for the checkpoint),
-11 (hash), 12 and 17 (hash, 1 shard), never in phase 10, and
-``ShardedKmerTable``'s once in phases 15, 16 and 17 (hash, 4 shards). A
+12, 15, 16 and 17 (hash), once per insert of a batch, merge and grow of
+a hash table (one routed launch for all shards), ``hash_lookup`` in
+phases 10 and 15 (``--mirror device``), once per lookup wave, and none
+of the sorted store's kernels in those hash runs;
+``KmerTable.to_sorted_arrays`` (the host mirror) runs once in phases 9
+(plus once for the checkpoint), 11 (hash), 12 and 17 (hash, 1 shard),
+never under ``--mirror device``, and ``ShardedKmerTable``'s once in
+phases 15 (host mirror), 16 and 17 (hash, 4 shards). A
 logged
 ``sPCR device-index build failed`` or ``reach warmup failed`` (the copied
 ``pcr/counts.py`` swallows those errors and falls back to the host
@@ -130,6 +140,7 @@ HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
 STITCH_SHAPE = (2048, 1 << 16)
 HASH_READS = 1 << 17  # one CLI ingest batch
 HASH_CAP = 1 << 27  # the 1M cell's final hash table
+HASH_SHARDS = 4  # the owner-routed insert and lookup of phase 8
 LOOKUP_WAVE = 4096
 LOOKUP_MANY = 1 << 20
 CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
@@ -628,7 +639,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     torch.cuda.reset_peak_memory_stats()
     n_lines = len(run_log.lines)
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
-                   ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves):
+                   ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
+                   ctx.table_calls):
         events.clear()
     for fn in kernels.values():
         fn.launches = 0
@@ -647,6 +659,10 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     counts["closure_calls"] = closure_calls(lines)
     counts["hash_exports"] = len(ctx.hash_exports)
     counts["shard_exports"] = len(ctx.shard_exports)
+    # the hash tables' calls that each launch hash_insert once, and the
+    # lookup waves that each launch hash_lookup once
+    counts["table_calls"] = len(ctx.table_calls)
+    counts["lookup_waves"] = sum(1 for n in ctx.lookup_waves if n)
     walls = next(line for line in lines if "stage walls:" in line)
     print(f"{label}: CLI wall {wall:.3f} s; {walls}")
     for line in lines:
@@ -660,6 +676,10 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
           f"{len(ctx.shard_exports)} sharded hash table")
     if ctx.hash_grows:
         print(f"{label}: hash table grows to {ctx.hash_grows} slots")
+    if ctx.table_calls:
+        calls = {c: ctx.table_calls.count(c) for c in ("insert", "merge",
+                                                      "grow")}
+        print(f"{label}: hash table calls {calls}")
     if ctx.lookup_waves:
         waves = sorted(ctx.lookup_waves)
         print(f"{label}: {len(waves)} directional lookup waves of "
@@ -785,58 +805,100 @@ def first_batch_kmers(torch, np):
     return kmers.reshape(-1).contiguous(), int(valid.sum())
 
 
-def table_rows(torch, keys, counts):
+def table_rows(torch, slots):
     """A table's occupied (key, u32 count) rows in key order: what the
     mirror and the checkpoint read, whatever the slot layout."""
-    from sharkmer_tpu_torch.kernels.hash import as_u32
+    from sharkmer_tpu_torch.kernels.hash import as_u32, slot_counts, slot_keys
 
+    keys = slot_keys(slots).reshape(-1)
     occupied = keys != INT64_MAX
     sorted_keys, order = torch.sort(keys[occupied])
-    return sorted_keys, as_u32(counts[occupied][order])
+    return sorted_keys, as_u32(slot_counts(slots).reshape(-1)[occupied][order])
 
 
 def same_rows(torch, name: str, got, want, what: str) -> tuple[int, int]:
-    """Exact equality of two tables' rows; (max abs count error, rows)."""
-    gk, gc = table_rows(torch, *got)
-    wk, wc = table_rows(torch, *want)
-    require(torch.equal(gk, wk), f"{name}: keys differ from plain on {what}")
-    err = int((gc - wc).abs().max()) if gc.numel() else 0
+    """Exact equality of two tables' rows, shard by shard, and of their
+    claim counters with each other and with the occupied slots; (max
+    abs count error, rows)."""
+    (g_slots, g_claims), (w_slots, w_claims) = got, want
+    n_shards = g_claims.numel()
+    err, rows = 0, 0
+    for shard, (g, w) in enumerate(zip(g_slots.view(n_shards, -1, 2),
+                                       w_slots.view(n_shards, -1, 2))):
+        gk, gc = table_rows(torch, g)
+        wk, wc = table_rows(torch, w)
+        require(torch.equal(gk, wk),
+                f"{name}: shard {shard}'s keys differ from plain on {what}")
+        err = max(err, int((gc - wc).abs().max()) if gc.numel() else 0)
+        rows += gk.numel()
+        require(int(g_claims[shard]) == int(w_claims[shard]) == gk.numel(),
+                f"{name}: shard {shard} claimed {int(g_claims[shard])} slots "
+                f"(plain {int(w_claims[shard])}) for {gk.numel()} keys on "
+                f"{what}")
     require(err == 0, f"{name}: counts differ from plain on {what} "
             f"(max abs err {err})")
-    return err, gk.numel()
+    return err, rows
 
 
-def touched_sectors(torch, keys) -> tuple[int, int]:
-    """The 32 B sectors of a table's keys (4 slots) and of its counts (8
-    slots) that hold at least one key: what an insert reads and writes."""
-    slots = torch.nonzero(keys != INT64_MAX).reshape(-1)
-    return (torch.unique_consecutive(slots >> 2).numel(),
-            torch.unique_consecutive(slots >> 3).numel())
+def touched_sectors(torch, slots) -> dict:
+    """The 32 B sectors that hold at least one key, which an insert
+    reads and writes: of the 16 B slots (2 a sector); and, on the same
+    occupied slots, of the two-array layout before it (int64 keys, 4 a
+    sector; u32 counts, 8 a sector)."""
+    from sharkmer_tpu_torch.kernels.hash import slot_keys
+
+    slots_idx = torch.nonzero(slot_keys(slots).reshape(-1) != INT64_MAX)
+    slots_idx = slots_idx.reshape(-1)
+    return {"slot_sectors": torch.unique_consecutive(slots_idx >> 1).numel(),
+            "key_sectors": torch.unique_consecutive(slots_idx >> 2).numel(),
+            "count_sectors": torch.unique_consecutive(slots_idx >> 3).numel()}
+
+
+def graph_ms(torch, launch, reps: int = 200) -> float:
+    """ms of one kernel alone: ``reps`` back-to-back launches captured in
+    one CUDA graph (no host work between them), the median of 5 replays
+    over ``reps``. ``launch(stream)`` launches once on the stream."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = [median_ms(torch, graph.replay, 1) / reps for _ in range(5)]
+    del graph
+    return statistics.median(times)
 
 
 def hash_phase(torch, np, card: str, latency: dict) -> dict:
     """``hash_insert`` and ``hash_lookup`` against ``insert_plain`` and
-    ``lookup_plain`` on the card, on one real ingest batch: the batch into
-    a fresh 2^27-slot table, the batch again (all hits), the rehash of a
-    2^26-slot table holding it into 2^27 slots; directional lookups, a
-    LOOKUP_WAVE wave and LOOKUP_MANY queries, half of them random keys.
-    The tables must hold equal rows (the slot layouts may differ: the
-    kernel's claims race); lookups must be equal. Median CUDA-event ms,
-    kernel timed between two plain runs; each insert on a fresh table
-    reset outside the timed span. An insert's time includes the wait for
-    its overflow flag (a few us)."""
+    ``lookup_plain`` on the card, on one real ingest batch and the 16 B
+    slot layout: the batch into a fresh 2^27-slot table, the batch again
+    (all hits), the rehash of a 2^26-slot table holding it into 2^27
+    slots, and the batch routed by owner into HASH_SHARDS shards of
+    2^27 / HASH_SHARDS slots in one launch; directional lookups on the
+    one table and on the shards, a LOOKUP_WAVE wave and LOOKUP_MANY
+    queries, half of them random keys. The tables must hold equal rows
+    shard by shard (the slot layouts may differ: the kernel's claims
+    race) and claim counters equal to their occupied slots; lookups must
+    be equal. Median CUDA-event ms, kernel timed between two plain runs;
+    each insert on a fresh table reset outside the timed span. An
+    insert's time includes the wait for its overflow flag (a few us).
+    The wave is also timed as the kernel alone (``graph_ms``)."""
     from sharkmer_tpu_torch.kernels import hash as hk
+    from sharkmer_tpu_torch.ops.histogram import revcomp
 
     kmers, n_valid = first_batch_kmers(torch, np)
     n = kmers.numel()
 
-    def fresh(cap):
-        return (torch.full((cap,), INT64_MAX, dtype=torch.int64,
-                           device="cuda"),
-                torch.zeros(cap, dtype=torch.int32, device="cuda"))
+    def fresh(shape):
+        n_counters = shape[0] if len(shape) == 2 else 1
+        return (hk.new_slots(shape, "cuda"),
+                torch.zeros(n_counters, dtype=torch.int64, device="cuda"))
 
     def reset(table):
-        table[0].fill_(INT64_MAX)
+        table[0][..., 0].fill_(INT64_MAX)
+        table[0][..., 1].zero_()
         table[1].zero_()
 
     def timed(kernel, plain, reset_kernel=None, reset_plain=None, reps=10):
@@ -845,103 +907,155 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
         plain_ms = (plain_ms + median_ms(torch, plain, 1, reset_plain)) / 2
         return ms, plain_ms
 
-    kern, plain = fresh(HASH_CAP), fresh(HASH_CAP)
+    def insert_bytes(slots, n_entries, entry_bytes=8):
+        """Each entry read once, each slot sector that holds a key read
+        and written once; and the two-array layout's key and count
+        sectors on the same slots."""
+        sec = touched_sectors(torch, slots)
+        return (entry_bytes * n_entries + 64 * sec["slot_sectors"],
+                entry_bytes * n_entries
+                + 64 * (sec["key_sectors"] + sec["count_sectors"]), sec)
+
     record = {}
-    what = (f"{HASH_READS} reads' {n} k-mers ({n_valid} valid) into "
-            f"{HASH_CAP} slots")
-    for rnd in ("fresh", "hits"):
-        hk.hash_insert(*kern, kmers)
-        hk.insert_plain(*plain, kmers)
-        torch.cuda.synchronize()
-        err, distinct = same_rows(torch, "hash_insert", kern, plain,
-                                  f"{what}, {rnd}")
-        total = int(hk.as_u32(kern[1]).sum())
-        rounds = 1 if rnd == "fresh" else 2
-        require(total == rounds * n_valid,
-                f"hash_insert: n_total {total} != {rounds} x {n_valid}")
-        record[rnd] = (err, distinct)
-    err, distinct = record.pop("fresh")
-    # each entry read once; each key sector and count sector that holds a
-    # key read and written once (hits: the key sectors only read)
-    key_sectors, count_sectors = touched_sectors(torch, kern[0])
-    fresh_bytes = 8 * n + 64 * (key_sectors + count_sectors)
-    hit_bytes = 8 * n + 32 * key_sectors + 64 * count_sectors
-    hits_ms, hits_plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
-                                   lambda: hk.insert_plain(*plain, kmers))
-    ms, plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
-                         lambda: hk.insert_plain(*plain, kmers),
-                         lambda: reset(kern), lambda: reset(plain))
-    print(f"hash_insert: exact on {what}: {distinct} keys, n_total "
-          f"{n_valid}; median {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain; "
-          f"all hits {hits_ms:.4f} ms vs {hits_plain_ms:.4f} ms on {card}",
-          flush=True)
-    insert = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": None,  # no torch op inserts into a hash table
-              **byte_bound(fresh_bytes), "entries": n, "distinct": distinct,
-              "key_sectors": key_sectors, "count_sectors": count_sectors,
+    tables = {}
+    for label, shape in (("1 table", (HASH_CAP,)),
+                         (f"{HASH_SHARDS} shards",
+                          (HASH_SHARDS, HASH_CAP // HASH_SHARDS))):
+        kern, plain = fresh(shape), fresh(shape)
+        what = (f"{HASH_READS} reads' {n} k-mers ({n_valid} valid) into "
+                f"{label} of {HASH_CAP} slots")
+        for rnd in ("fresh", "hits"):
+            hk.hash_insert(*kern, kmers)
+            hk.insert_plain(*plain, kmers)
+            torch.cuda.synchronize()
+            err, distinct = same_rows(torch, "hash_insert", kern, plain,
+                                      f"{what}, {rnd}")
+            total = int(hk.as_u32(hk.slot_counts(kern[0])).sum())
+            rounds = 1 if rnd == "fresh" else 2
+            require(total == rounds * n_valid,
+                    f"hash_insert: n_total {total} != {rounds} x {n_valid}")
+        new_bytes, old_bytes, sec = insert_bytes(kern[0], n)
+        if label == "1 table":
+            hits_ms, hits_plain_ms = timed(
+                lambda: hk.hash_insert(*kern, kmers),
+                lambda: hk.insert_plain(*plain, kmers))
+        ms, plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
+                             lambda: hk.insert_plain(*plain, kmers),
+                             lambda: reset(kern), lambda: reset(plain))
+        print(f"hash_insert: exact on {what}: {distinct} keys, claim "
+              f"counters {kern[1].tolist()}, n_total {n_valid}; median "
+              f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain on {card}",
+              flush=True)
+        record[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": new_bytes / HBM_BYTES_PER_MS,
+                         "two_array_bound_ms": old_bytes / HBM_BYTES_PER_MS,
+                         "distinct": distinct, **sec}
+        tables[label] = kern
+        del plain
+        torch.cuda.empty_cache()
+    one = record["1 table"]
+    # all hits: each slot sector that holds a key read and written once
+    print(f"hash_insert: all hits {hits_ms:.4f} ms vs {hits_plain_ms:.4f} ms "
+          f"plain on {card}", flush=True)
+    insert = {**one, "library_ms": None,  # no torch op inserts into a table
+              "bound_by": "bytes", "entries": n,
               "hits_ms": hits_ms, "hits_plain_ms": hits_plain_ms,
-              "hits_bound_ms": hit_bytes / HBM_BYTES_PER_MS}
-    del plain
-    torch.cuda.empty_cache()
+              "hits_bound_ms": one["bound_ms"],
+              **{f"shards_{key}": value for key, value in
+                 record[f"{HASH_SHARDS} shards"].items()}}
 
     # the rehash of a grow: a 2^26-slot table holding the batch into 2^27
-    src = fresh(HASH_CAP // 2)
+    src = fresh((HASH_CAP // 2,))
     hk.hash_insert(*src, kmers)
-    new_k, new_p = fresh(HASH_CAP), fresh(HASH_CAP)
-    hk.hash_insert(*new_k, *src)
-    hk.insert_plain(*new_p, *src)
+    new_k, new_p = fresh((HASH_CAP,)), fresh((HASH_CAP,))
+    hk.hash_insert(*new_k, src[0])
+    hk.insert_plain(*new_p, src[0])
     torch.cuda.synchronize()
     same_rows(torch, "hash_insert", new_k, new_p, "the rehash")
     same_rows(torch, "hash_insert", new_k, src, "the rehash (source rows)")
     rehash_ms, rehash_plain_ms = timed(
-        lambda: hk.hash_insert(*new_k, *src),
-        lambda: hk.insert_plain(*new_p, *src),
+        lambda: hk.hash_insert(*new_k, src[0]),
+        lambda: hk.insert_plain(*new_p, src[0]),
         lambda: reset(new_k), lambda: reset(new_p), reps=5)
-    # the source's slots read once; the new table's sectors as above
-    rehash_bytes = 12 * src[0].numel() + 64 * sum(
-        touched_sectors(torch, new_k[0]))
-    print(f"hash_insert: exact on the rehash of {src[0].numel()} slots into "
+    # the source's 16 B slots read once; the new table's sectors as above
+    rehash_bytes, rehash_old, _ = insert_bytes(new_k[0], src[0].shape[0], 16)
+    print(f"hash_insert: exact on the rehash of {src[0].shape[0]} slots into "
           f"{HASH_CAP}; median {rehash_ms:.4f} ms kernel vs "
           f"{rehash_plain_ms:.4f} ms plain on {card}", flush=True)
     insert.update(rehash_ms=rehash_ms, rehash_plain_ms=rehash_plain_ms,
-                  rehash_bound_ms=rehash_bytes / HBM_BYTES_PER_MS)
+                  rehash_bound_ms=rehash_bytes / HBM_BYTES_PER_MS,
+                  rehash_two_array_bound_ms=(
+                      rehash_old - 4 * src[0].shape[0]) / HBM_BYTES_PER_MS)
     del src, new_k, new_p
     torch.cuda.empty_cache()
 
     # directional queries: half the batch's k-mers (half of those in
     # reverse-complement form), half random keys
-    from sharkmer_tpu_torch.ops.histogram import revcomp
-
     gen = torch.Generator(device="cuda").manual_seed(6)
     valid = kmers[kmers != INT64_MAX]
-    lookups = {}
-    for n_q in (LOOKUP_WAVE, LOOKUP_MANY):
-        pick = valid[torch.randint(0, valid.numel(), (n_q // 2,),
-                                   device="cuda", generator=gen)]
-        pick[::2] = revcomp(pick[::2], K)
-        absent = torch.randint(0, 1 << (2 * K), (n_q - n_q // 2,),
-                               device="cuda", generator=gen)
-        q = torch.cat([pick, absent])
-        result = compare(torch, "hash_lookup",
-                         lambda: hk.hash_lookup(*kern, q, K),
-                         lambda: hk.lookup_plain(*kern, q, K), 20, card,
-                         f"{n_q} directional queries, half random")
-        found = int((hk.hash_lookup(*kern, q, K) != 0).sum())
-        require(found >= n_q // 2, f"hash_lookup: {found} of {n_q} found")
-        require(torch.equal(hk.hash_lookup(*kern, pick), hk.lookup_plain(
-            *kern, pick)), "hash_lookup: canonical lookups differ")
-        # query in, count out; a key sector per query, a count sector per
-        # hit; one dependent chain: the query (L2), its key slot and its
-        # count (DRAM)
-        result.update(byte_bound(12 * n_q + 32 * n_q + 32 * found),
-                      latency_bound_ms=(latency["l2_ns"]
-                                        + 2 * latency["dram_ns"]) / 1e6,
-                      queries=n_q, found=found)
-        lookups[n_q] = result
-    lookup = dict(lookups[LOOKUP_WAVE], many_ms=lookups[LOOKUP_MANY]["ms"],
-                  many_plain_ms=lookups[LOOKUP_MANY]["plain_ms"],
-                  many_bound_ms=lookups[LOOKUP_MANY]["bound_ms"])
-    del kern, kmers, valid
+    lib = hk._lib()
+    lookup = {}
+    for label, (slots, _claims) in tables.items():
+        prefix = "" if label == "1 table" else "shards_"
+        for n_q in (LOOKUP_WAVE, LOOKUP_MANY):
+            pick = valid[torch.randint(0, valid.numel(), (n_q // 2,),
+                                       device="cuda", generator=gen)]
+            pick[::2] = revcomp(pick[::2], K)
+            absent = torch.randint(0, 1 << (2 * K), (n_q - n_q // 2,),
+                                   device="cuda", generator=gen)
+            q = torch.cat([pick, absent])
+            result = compare(torch, "hash_lookup",
+                             lambda: hk.hash_lookup(slots, q, K),
+                             lambda: hk.lookup_plain(slots, q, K), 20, card,
+                             f"{n_q} directional queries, half random, "
+                             f"{label}")
+            found = int((hk.hash_lookup(slots, q, K) != 0).sum())
+            require(found >= n_q // 2,
+                    f"hash_lookup: {found} of {n_q} found ({label})")
+            require(torch.equal(hk.hash_lookup(slots, pick),
+                                hk.lookup_plain(slots, pick)),
+                    f"hash_lookup: canonical lookups differ ({label})")
+            # query in, count out, a slot sector per query; the two-array
+            # layout read a key sector per query and a count sector per hit
+            size = "" if n_q == LOOKUP_WAVE else "many_"
+            lookup[f"{prefix}{size}ms"] = result["ms"]
+            lookup[f"{prefix}{size}plain_ms"] = result["plain_ms"]
+            lookup[f"{prefix}{size}max_abs_err"] = result["max_abs_err"]
+            lookup[f"{prefix}{size}bound_ms"] = (
+                (12 * n_q + 32 * n_q) / HBM_BYTES_PER_MS)
+            lookup[f"{prefix}{size}two_array_bound_ms"] = (
+                (12 * n_q + 32 * n_q + 32 * found) / HBM_BYTES_PER_MS)
+            lookup[f"{prefix}{size}found"] = found
+            if n_q != LOOKUP_WAVE:
+                continue
+            out = torch.empty(n_q, dtype=torch.int32, device="cuda")
+            n_shards, cap = hk._geometry(slots)
+
+            def launch(stream):
+                rc = lib.shk_hash_lookup(slots.data_ptr(), cap, n_shards,
+                                         q.data_ptr(), n_q, K,
+                                         out.data_ptr(), stream)
+                require(rc == 0, f"hash_lookup: launch failed ({rc})")
+
+            alone = graph_ms(torch, launch)
+            require(torch.equal(out, hk.hash_lookup(slots, q, K)),
+                    "hash_lookup: the graph's launches differ")
+            lookup[f"{prefix}kernel_ms"] = alone
+            print(f"hash_lookup: {n_q}-query wave, {label}: kernel alone "
+                  f"{alone:.5f} ms (a CUDA graph of back-to-back launches) "
+                  f"vs {result['ms']:.5f} ms through the wrapper on {card}",
+                  flush=True)
+    lookup.update(library_ms=None,  # no torch op probes a hash table
+                  bound_by="bytes", queries=LOOKUP_WAVE,
+                  # one dependent chain: the query (L2), its slot (DRAM);
+                  # the two-array layout then loaded the count (DRAM)
+                  latency_bound_ms=(latency["l2_ns"]
+                                    + latency["dram_ns"]) / 1e6,
+                  two_array_latency_bound_ms=(latency["l2_ns"]
+                                              + 2 * latency["dram_ns"]) / 1e6)
+    lookup["max_abs_err"] = max(v for key, v in lookup.items()
+                                if key.endswith("max_abs_err"))
+    del tables, kmers, valid
     torch.cuda.empty_cache()
     return {"hash_insert": insert, "hash_lookup": lookup}
 
@@ -1021,7 +1135,7 @@ def main() -> int:
         ctx = types.SimpleNamespace(
             torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
             plain_closures=[], hash_exports=[], shard_exports=[],
-            hash_grows=[], lookup_waves=[])
+            hash_grows=[], lookup_waves=[], table_calls=[])
 
         def counted(cls, name, event):
             """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -1042,9 +1156,22 @@ def main() -> int:
                 lambda a: ctx.hash_exports.append(1))
         counted(ShardedKmerTable, "to_sorted_arrays",
                 lambda a: ctx.shard_exports.append(1))
-        counted(KmerTable, "_grow",
-                lambda a: ctx.hash_grows.append(a[0].capacity))
+        def batch_insert(args):
+            if len(args[1]):  # an empty batch launches nothing
+                ctx.table_calls.append("insert")
+
+        # each of these launches hash_insert once (an insert of a
+        # non-empty batch, a merge, a grow: the sharded ones routed)
+        for cls in (KmerTable, ShardedKmerTable):
+            counted(cls, "insert_kmers", batch_insert)
+            counted(cls, "merge_from",
+                    lambda a: ctx.table_calls.append("merge"))
+            counted(cls, "_grow", lambda a: (
+                ctx.table_calls.append("grow"),
+                ctx.hash_grows.append(a[0].slots.shape[:-1].numel())))
         counted(KmerTable, "lookup_directional",
+                lambda a: ctx.lookup_waves.append(len(a[1])))
+        counted(ShardedKmerTable, "lookup_directional",
                 lambda a: ctx.lookup_waves.append(len(a[1])))
         # on the card the closure must never fall back to its torch loop
         counted(closure, "closure_plain",
@@ -1122,10 +1249,15 @@ def main() -> int:
               f"{spcr_wall(runs['default'][1]):.3f} s on the single store "
               f"(phase 4)", flush=True)
 
-        phase(f"15. main path: 1M reads, --n-shards {N_SHARDS} --backend hash")
+        phase(f"15. main path: 1M reads, --n-shards {N_SHARDS} --backend hash "
+              f"(host mirror, then --mirror device)")
         runs["shards_hash"] = drive_main_path(
             ctx, "shards_hash", 1_000_000,
             ("--n-shards", N_SHARDS, "--backend", "hash"))
+        runs["shards_hash_device"] = drive_main_path(
+            ctx, "shards_hash_device", 1_000_000,
+            ("--n-shards", N_SHARDS, "--backend", "hash", "--mirror",
+             "device"))
 
         phase(f"16. --load-table of phase 9's checkpoint with --n-shards "
               f"{N_SHARDS} (a ShardedKmerTable)")
@@ -1158,26 +1290,39 @@ def main() -> int:
                 "reach_closure": ("default", "max_agg_2^24", "4M",
                                   "load_sorted", "shards", *chunked_sorted),
                 "hash_insert": ("hash", "load_hash", "hash_4M",
-                                "shards_hash", "shards_load", *chunked_hash),
-                "hash_lookup": ("hash_device",)}
+                                "shards_hash", "shards_hash_device",
+                                "shards_load", *chunked_hash),
+                "hash_lookup": ("hash_device", "shards_hash_device")}
     for name, labels in required.items():
         for label in labels:
             require(runs[label][0][name] >= 1,
                     f"{name} was not launched in the {label} run")
-    # the hash runs never touch the sorted store's kernels
-    for label in ("hash", "hash_device", "hash_4M", "shards_hash",
-                  "shards_load", *chunked_hash):
+    # the hash runs never touch the sorted store's kernels, and launch
+    # hash_insert once per insert, merge and grow of a hash table (one
+    # routed launch on the shards, not one a shard) and hash_lookup once
+    # per lookup wave
+    for label in ("hash", "hash_device", "load_hash", "hash_4M",
+                  "shards_hash", "shards_hash_device", "shards_load",
+                  *chunked_hash):
+        counts = runs[label][0]
         for name in ("run_ends", "run_starts", "probe_rows", "stitch_rows",
                      "reach_closure"):
-            require(runs[label][0][name] == 0,
+            require(counts[name] == 0,
                     f"{name} was launched in the {label} run")
+        require(counts["hash_insert"] == counts["table_calls"],
+                f"{label}: {counts['hash_insert']} hash_insert launches for "
+                f"{counts['table_calls']} inserts, merges and grows")
+        require(counts["hash_lookup"] == counts["lookup_waves"],
+                f"{label}: {counts['hash_lookup']} hash_lookup launches for "
+                f"{counts['lookup_waves']} lookup waves")
     # KmerTable.to_sorted_arrays (ShardedKmerTable's with --n-shards): the
     # host mirror once under --mirror auto (phase 9 also exports the
     # checkpoint), never under device; --load-table with --n-shards loads
     # into a ShardedKmerTable, whatever --backend says
     for label, exports, shard_exports in (
             ("hash", 2, 0), ("hash_device", 0, 0), ("load_hash", 1, 0),
-            ("hash_4M", 1, 0), ("shards_hash", 0, 1), ("shards_load", 0, 1),
+            ("hash_4M", 1, 0), ("shards_hash", 0, 1),
+            ("shards_hash_device", 0, 0), ("shards_load", 0, 1),
             ("chunks_hash_1", 1, 0), (f"chunks_hash_{N_SHARDS}", 0, 1)):
         got = (runs[label][0]["hash_exports"],
                runs[label][0]["shard_exports"])

@@ -22,11 +22,15 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   return x;
 }
 
-// The shard of n_shards that owns `key`: the high bits of mix64, so that the
-// owner and a shard's home slot (its low bits) stay independent.
+// The shard of n_shards that owns a key whose mix64 is `h`: its high bits, so
+// that the owner and a shard's home slot (the low bits) stay independent.
+__device__ __forceinline__ int owner_of_hash(uint64_t h, int n_shards) {
+  return static_cast<int>((h >> 40) % static_cast<uint64_t>(n_shards));
+}
+
+// The shard of n_shards that owns `key`.
 __device__ __forceinline__ int owner(uint64_t key, int n_shards) {
-  return static_cast<int>((mix64(key) >> 40) %
-                          static_cast<uint64_t>(n_shards));
+  return owner_of_hash(mix64(key), n_shards);
 }
 
 }  // namespace shk

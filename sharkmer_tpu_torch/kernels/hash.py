@@ -4,23 +4,33 @@
 They replace XLA programs of the JAX package, not Pallas kernels:
 ``sharkmer_tpu/ops/hashtable.py`` ``_insert_kernel`` and ``_rehash_kernel``
 (claim/probe rounds of masked scatters in a ``lax.while_loop``), and
-``_lookup_kernel`` and ``_lookup_directional_kernel`` (the probe loop).
-torch has no op that does either.
+``_lookup_kernel`` and ``_lookup_directional_kernel`` (the probe loop);
+and, over S owner shards, the gather-mask-insert and mask-lookup-psum
+bodies of ``sharkmer_tpu/parallel/sharded_table.py``. torch has no op
+that does either.
 
-The table is two ``[cap]`` tensors (``cap`` a power of two): int64
-``keys``, ``SENTINEL`` (INT64_MAX) for an empty slot, and int32
-``counts`` holding the u32 count's bit pattern. A key's home slot is
-``mix64(key) & (cap - 1)``, the SplitMix64 finalizer; collisions probe
+The table is one int64 tensor of 16 B slots (``new_slots``): ``[cap, 2]``
+for one table, ``[S, cap, 2]`` for S owner shards (``cap`` a power of
+two). A slot holds the int64 key at byte 0 (``SENTINEL``, INT64_MAX, when
+empty), the u32 count at byte 8 and 4 B of zeros; ``slot_keys`` and
+``slot_counts`` are the int64 key view and the int32 count view (the
+u32's bit pattern), each with a 16 B stride. A key lives in shard
+``owner(key, S)``, the high bits of the SplitMix64 hash; its home slot
+there is ``mix64(key) & (cap - 1)``, the low bits; collisions probe
 linearly. Counts add modulo 2^32, and a count at or above
 ``SAT_THRESHOLD`` takes no further add (the JAX table's freeze rule).
+An insert also counts the slots it claims into ``claims`` (int64, one
+per shard), so a table's occupancy is read without a sweep.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the CPU
-path and the test oracle): ``insert_plain`` is the JAX claim/probe round
-loop, ``lookup_plain`` the JAX probe loop. On a CUDA tensor it launches
-the hand-written kernel in ``csrc/hash_table.cu`` on the current stream,
-or raises. ``<wrapper>.launches`` counts the wrapper's kernel launches.
-The kernel's claims race, so its slot layout may differ from the plain
-version's; the table's contents (each key and its count) do not.
+path and the test oracle), on the same layout and the same routing:
+``insert_plain`` is the JAX claim/probe round loop, ``lookup_plain`` the
+JAX probe loop. On a CUDA tensor it launches the hand-written kernel in
+``csrc/hash_table.cu`` on the current stream, or raises; a sharded call
+is one launch. ``<wrapper>.launches`` counts the wrapper's kernel
+launches. The kernel's claims race, so its slot layout may differ from
+the plain version's; the table's contents (each key and its count) and
+its claim counts do not.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from . import build
 
 SAT_THRESHOLD = 0xE000_0000
 U32 = 0xFFFF_FFFF
+MAX_SHARDS = 4096  # the insert kernel's per-block claim counters
 # the SplitMix64 multipliers as int64 bit patterns (torch's int64
 # multiply wraps, as the uint64 one does)
 _M1 = 0xFF51_AFD7_ED55_8CCD - (1 << 64)
@@ -53,13 +64,17 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
     return x ^ ((x >> 33) & _LOW31)
 
 
+def _owner_of_hash(h: torch.Tensor, n_shards: int) -> torch.Tensor:
+    return ((h >> 40) & _LOW24) % n_shards
+
+
 def owner(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
     """The shard of ``n_shards`` that owns each key: the JAX package's
     u64 ``(mix64(k) >> 40) % n_shards`` (``parallel/sharded_table.py``
     ``_owner``), the high hash bits, so that the owner and a shard's
     home slot (the low bits) stay independent. The mask makes the int64
     ``>> 40`` logical. ``csrc/mix64.cuh`` has the device form."""
-    return ((mix64(keys) >> 40) & _LOW24) % n_shards
+    return _owner_of_hash(mix64(keys), n_shards)
 
 
 def as_u32(counts: torch.Tensor) -> torch.Tensor:
@@ -70,6 +85,47 @@ def as_u32(counts: torch.Tensor) -> torch.Tensor:
 def as_i32(values: torch.Tensor) -> torch.Tensor:
     """u32 values (int64, in [0, 2^32)) -> int32 bit patterns."""
     return (values - ((values >> 31) << 32)).to(torch.int32)
+
+
+# -- the slot layout ----------------------------------------------------------
+
+
+def new_slots(shape, device) -> torch.Tensor:
+    """Empty slots: int64 ``[*shape, 2]``, each key SENTINEL, each count
+    and pad word 0."""
+    slots = torch.zeros((*shape, 2), dtype=torch.int64, device=device)
+    slots[..., 0] = SENTINEL
+    return slots
+
+
+def slot_keys(slots: torch.Tensor) -> torch.Tensor:
+    """The int64 keys of ``[..., 2]`` slots (a view, 16 B stride)."""
+    return slots[..., 0]
+
+
+def slot_counts(slots: torch.Tensor) -> torch.Tensor:
+    """The int32 counts of ``[..., 2]`` slots: the word at byte 8 (a
+    view, 16 B stride)."""
+    return slots.view(torch.int32)[..., 2]
+
+
+def _geometry(slots: torch.Tensor) -> tuple[int, int]:
+    """(n_shards, slots a shard) of a ``[cap, 2]`` or ``[S, cap, 2]``
+    table."""
+    if slots.dim() == 2:
+        return 1, slots.shape[0]
+    return slots.shape[0], slots.shape[1]
+
+
+def _homes(slots, keys):
+    """Each key's shard base (flat slot index of its shard's slot 0) and
+    home slot in its shard."""
+    n_shards, cap = _geometry(slots)
+    h = mix64(keys)
+    return _owner_of_hash(h, n_shards) * cap, h & (cap - 1)
+
+
+# -- plain versions -----------------------------------------------------------
 
 
 def _freeze_add(counts, slots, amounts) -> None:
@@ -86,124 +142,168 @@ def _freeze_add(counts, slots, amounts) -> None:
     counts[uniq] = as_i32(new)
 
 
-def insert_plain(keys, counts, kmers, amounts=None) -> None:
-    """The JAX claim/probe rounds, in place. A round: pending entries
-    that find their key add; those at an empty slot claim it
-    (``index_put_``: one claimant of a slot wins) and, re-reading the
-    slot, the winners add; the rest step one slot on."""
-    cap = keys.shape[0]
-    live = kmers != SENTINEL
-    km = kmers[live]
+def _entries(kmers, amounts):
+    """(keys, amounts as int64 u32 values) of an insert's entries:
+    ``kmers`` [n] with ``amounts`` [n] or None (each adds 1), or another
+    table's ``[n, 2]`` slots."""
+    if kmers.dim() == 2:
+        return slot_keys(kmers), as_u32(slot_counts(kmers))
     if amounts is None:
-        amt = torch.ones(km.shape, dtype=torch.int64, device=km.device)
-    else:
-        amt = as_u32(amounts[live])
-    slot = mix64(km) & (cap - 1)
+        return kmers, torch.ones(kmers.shape, dtype=torch.int64,
+                                 device=kmers.device)
+    return kmers, as_u32(amounts)
+
+
+def insert_plain(slots, claims, kmers, amounts=None) -> None:
+    """The JAX claim/probe rounds, in place, each entry in its owner's
+    shard. A round: pending entries that find their key add; those at an
+    empty slot claim it (``index_put_``: one claimant of a slot wins;
+    each newly claimed slot counts in its shard's ``claims``) and,
+    re-reading the slot, the winners add; the rest step one slot on in
+    their shard."""
+    cap = _geometry(slots)[1]
+    keys = slot_keys(slots).view(-1)
+    counts = slot_counts(slots).view(-1)
+    km, amt = _entries(kmers, amounts)
+    live = km != SENTINEL
+    km, amt = km[live], amt[live]
+    base, slot = _homes(slots, km)
     for _ in range(cap):
         if not km.numel():
             return
-        cur = keys[slot]
+        flat = base + slot
+        cur = keys[flat]
         hit = cur == km
-        _freeze_add(counts, slot[hit], amt[hit])
+        _freeze_add(counts, flat[hit], amt[hit])
         rest = ~hit
-        km, amt, slot, cur = km[rest], amt[rest], slot[rest], cur[rest]
+        km, amt, cur, flat = km[rest], amt[rest], cur[rest], flat[rest]
+        base, slot = base[rest], slot[rest]
         empty = cur == SENTINEL
-        keys[slot[empty]] = km[empty]
-        claimed = empty & (keys[slot] == km)
-        _freeze_add(counts, slot[claimed], amt[claimed])
+        fresh = torch.unique(flat[empty])
+        claims.index_add_(0, fresh // cap, torch.ones_like(fresh))
+        keys[flat[empty]] = km[empty]
+        claimed = empty & (keys[flat] == km)
+        _freeze_add(counts, flat[claimed], amt[claimed])
         rest = ~claimed
-        km, amt = km[rest], amt[rest]
+        km, amt, base = km[rest], amt[rest], base[rest]
         slot = (slot[rest] + 1) & (cap - 1)
     if km.numel():
         raise RuntimeError(f"hash_insert: {km.numel()} entries found no slot "
                            f"in {cap} probes (table full)")
 
 
-def lookup_plain(keys, counts, queries, k: int = 0) -> torch.Tensor:
-    """The JAX probe loop: each query's count (int32 bit pattern), 0
-    when absent or SENTINEL; ``k > 0`` canonicalizes the queries first."""
-    cap = keys.shape[0]
+def lookup_plain(slots, queries, k: int = 0) -> torch.Tensor:
+    """The JAX probe loop, each query in its owner's shard: its count
+    (int32 bit pattern), 0 when absent or SENTINEL; ``k > 0``
+    canonicalizes the queries first."""
+    cap = _geometry(slots)[1]
+    keys = slot_keys(slots).reshape(-1)
+    counts = slot_counts(slots).reshape(-1)
     if k:
         queries = torch.minimum(queries, revcomp(queries, k))
     out = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
     idx = torch.nonzero(queries != SENTINEL).reshape(-1)
     q = queries[idx]
-    slot = mix64(q) & (cap - 1)
+    base, slot = _homes(slots, q)
+    flat = base + slot
     for _ in range(cap):
         if not idx.numel():
             break
-        cur = keys[slot]
+        cur = keys[flat]
         found = cur == q
-        out[idx[found]] = counts[slot[found]]
+        out[idx[found]] = counts[flat[found]]
         go = ~found & (cur != SENTINEL)
-        idx, q, slot = idx[go], q[go], (slot[go] + 1) & (cap - 1)
+        idx, q, flat = idx[go], q[go], flat[go]
+        # the next slot of the same shard
+        flat = flat - (flat & (cap - 1)) + ((flat + 1) & (cap - 1))
     return out
+
+
+# -- the kernels --------------------------------------------------------------
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("hash_table")
     if not getattr(lib, "_shk_bound", False):
-        lib.shk_hash_insert.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.shk_hash_insert.argtypes = [p, i64, i32, p, p, p, p, i64, p, p]
         lib.shk_hash_insert.restype = ctypes.c_int
-        lib.shk_hash_lookup.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        lib.shk_hash_lookup.argtypes = [p, i64, i32, p, i64, i32, p, p]
         lib.shk_hash_lookup.restype = ctypes.c_int
         lib._shk_bound = True
     return lib
 
 
-def _check_table(entry: str, keys, counts) -> int:
-    cap = keys.shape[0]
-    if keys.dtype != torch.int64 or counts.dtype != torch.int32:
-        raise TypeError(f"{entry}: keys must be int64 and counts int32, got "
-                        f"{keys.dtype} and {counts.dtype}")
-    if (keys.dim() != 1 or counts.shape != keys.shape
-            or not keys.is_contiguous() or not counts.is_contiguous()):
-        raise ValueError(f"{entry}: keys and counts must be contiguous [cap]")
+def _check_slots(entry: str, slots) -> tuple[int, int]:
+    if (slots.dtype != torch.int64 or slots.dim() not in (2, 3)
+            or slots.shape[-1] != 2 or not slots.is_contiguous()
+            or slots.data_ptr() % 16):
+        raise ValueError(f"{entry}: slots must be a contiguous, 16 B aligned "
+                         f"int64 [cap, 2] or [S, cap, 2] tensor, got "
+                         f"{slots.dtype} {tuple(slots.shape)}")
+    n_shards, cap = _geometry(slots)
     if cap == 0 or cap & (cap - 1):
         raise ValueError(f"{entry}: capacity {cap} is not a power of two")
-    return cap
+    if not 1 <= n_shards <= MAX_SHARDS:
+        raise ValueError(f"{entry}: {n_shards} shards, at most {MAX_SHARDS}")
+    return n_shards, cap
 
 
-def _check_input(entry: str, keys, name: str, t, dtype) -> None:
-    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{entry}: {name} must be a contiguous 1-D {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
-    if t.device != keys.device:
+def _check_input(entry: str, slots, name: str, t, dtype, dim=1) -> None:
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{entry}: {name} must be a contiguous {dim}-D "
+                         f"{dtype} tensor, got {t.dtype} {tuple(t.shape)}")
+    if t.device != slots.device:
         raise ValueError(f"{entry}: {name} is on {t.device}, the table on "
-                         f"{keys.device}")
+                         f"{slots.device}")
 
 
-def hash_insert(keys, counts, kmers, amounts=None) -> None:
-    """Add ``kmers`` (int64, SENTINEL skipped) into the table in place,
-    each with its ``amounts`` entry (int32 u32 bit patterns) or 1."""
-    if keys.device.type == "cpu":
-        insert_plain(keys, counts, kmers, amounts)
+def hash_insert(slots, claims, kmers, amounts=None) -> None:
+    """Add entries into the table ``slots`` in place, each in its owner's
+    shard, and count the slots claimed into ``claims`` (int64, one per
+    shard). The entries are ``kmers`` (int64 [n], SENTINEL skipped), each
+    with its ``amounts`` entry (int32 u32 bit patterns) or 1; or another
+    table's slots (int64 [n, 2], empty slots skipped: a rehash or a
+    merge)."""
+    if slots.device.type == "cpu":
+        insert_plain(slots, claims, kmers, amounts)
         return
-    if keys.device.type != "cuda":
-        raise ValueError(f"hash_insert: unsupported device {keys.device}")
-    cap = _check_table("hash_insert", keys, counts)
-    _check_input("hash_insert", keys, "kmers", kmers, torch.int64)
-    if amounts is not None:
-        _check_input("hash_insert", keys, "amounts", amounts, torch.int32)
-        if amounts.shape != kmers.shape:
-            raise ValueError("hash_insert: amounts and kmers differ in shape")
-    n = kmers.shape[0]
+    if slots.device.type != "cuda":
+        raise ValueError(f"hash_insert: unsupported device {slots.device}")
+    n_shards, cap = _check_slots("hash_insert", slots)
+    _check_input("hash_insert", slots, "claims", claims, torch.int64)
+    if claims.shape[0] != n_shards:
+        raise ValueError(f"hash_insert: {claims.shape[0]} claim counters for "
+                         f"{n_shards} shards")
+    src = None
+    if kmers.dim() == 2:
+        _check_input("hash_insert", slots, "source slots", kmers, torch.int64,
+                     2)
+        if kmers.shape[1] != 2 or kmers.data_ptr() % 16 or amounts is not None:
+            raise ValueError("hash_insert: source slots must be a 16 B "
+                             "aligned [n, 2] tensor, without amounts")
+        src, kmers = kmers, None
+    else:
+        _check_input("hash_insert", slots, "kmers", kmers, torch.int64)
+        if amounts is not None:
+            _check_input("hash_insert", slots, "amounts", amounts, torch.int32)
+            if amounts.shape != kmers.shape:
+                raise ValueError("hash_insert: amounts and kmers differ in "
+                                 "shape")
+    n = (kmers if src is None else src).shape[0]
     if not n:
         return
     lib = _lib()
-    overflow = torch.zeros(1, dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
+    overflow = torch.zeros(1, dtype=torch.int32, device=slots.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_hash_insert(
-            keys.data_ptr(), counts.data_ptr(), cap, kmers.data_ptr(),
-            None if amounts is None else amounts.data_ptr(), n,
-            overflow.data_ptr(), stream)
+            slots.data_ptr(), cap, n_shards, claims.data_ptr(), ptr(kmers),
+            ptr(amounts), ptr(src), n, overflow.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hash_insert: CUDA launch failed (cudaError {rc})")
     hash_insert.launches += 1
@@ -212,26 +312,26 @@ def hash_insert(keys, counts, kmers, amounts=None) -> None:
                            f"probes (table full)")
 
 
-def hash_lookup(keys, counts, queries, k: int = 0) -> torch.Tensor:
-    """Counts (int32 u32 bit patterns) of int64 ``queries``, 0 when
-    absent or SENTINEL; ``k > 0`` looks up each query's canonical form
-    (directional lookup)."""
-    if keys.device.type == "cpu":
-        return lookup_plain(keys, counts, queries, k)
-    if keys.device.type != "cuda":
-        raise ValueError(f"hash_lookup: unsupported device {keys.device}")
-    cap = _check_table("hash_lookup", keys, counts)
-    _check_input("hash_lookup", keys, "queries", queries, torch.int64)
+def hash_lookup(slots, queries, k: int = 0) -> torch.Tensor:
+    """Counts (int32 u32 bit patterns) of int64 ``queries``, each in its
+    owner's shard, 0 when absent or SENTINEL; ``k > 0`` looks up each
+    query's canonical form (directional lookup)."""
+    if slots.device.type == "cpu":
+        return lookup_plain(slots, queries, k)
+    if slots.device.type != "cuda":
+        raise ValueError(f"hash_lookup: unsupported device {slots.device}")
+    n_shards, cap = _check_slots("hash_lookup", slots)
+    _check_input("hash_lookup", slots, "queries", queries, torch.int64)
     if not 0 <= k <= 31:
         raise ValueError(f"hash_lookup: k={k} out of range")
     n = queries.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=keys.device)
+    out = torch.empty(n, dtype=torch.int32, device=slots.device)
     if not n:
         return out
     lib = _lib()
-    with torch.cuda.device(keys.device):
+    with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.shk_hash_lookup(keys.data_ptr(), counts.data_ptr(), cap,
+        rc = lib.shk_hash_lookup(slots.data_ptr(), cap, n_shards,
                                  queries.data_ptr(), n, k, out.data_ptr(),
                                  stream)
     if rc != 0:

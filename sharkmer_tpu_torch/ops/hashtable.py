@@ -1,19 +1,25 @@
 """Open-addressed canonical k-mer count table: the hash backend.
 
 Torch port of ``sharkmer_tpu.ops.hashtable.KmerTable`` (``--backend
-hash``): a pair of flat device tensors with linear probing, filled and
+hash``): one device tensor of 16 B slots with linear probing, filled and
 probed by the ``hash_insert`` and ``hash_lookup`` kernels
 (``kernels/hash.py``, ``csrc/hash_table.cu``).
 
-* ``keys``: int64 ``[capacity]`` (``ops/keys.py``), ``SENTINEL``
-  (INT64_MAX, the device form of ``EMPTY``) for an empty slot.
-* ``counts``: int32 ``[capacity]`` holding the bit pattern of the JAX
-  table's uint32 counts (12 B a slot in all). An add is modulo 2^32, and
-  a count at or above ``SAT_THRESHOLD`` (0xE0000000) takes no further
-  add: after 0xE0000000 and then 5 the count stays 0xE0000000 (a freeze,
-  not a clamp; ``kernels.hash.SAT_THRESHOLD``). Histograms, sums,
-  compares and the numpy boundary widen the counts with ``& 0xFFFFFFFF``
-  to int64 (``kernels.hash.as_u32``).
+* ``slots``: int64 ``[capacity, 2]``. A slot holds the key (int64,
+  ``ops/keys.py``; ``SENTINEL``, INT64_MAX, the device form of
+  ``EMPTY``, for an empty slot) at byte 0, the bit pattern of the JAX
+  table's uint32 count at byte 8 and 4 B of zeros: 16 B a slot, one
+  sector access for a key and its count.
+* ``keys`` and ``counts`` are views of the slots (int64 and int32, 16 B
+  strides), so every reader sees the two arrays of the JAX table. An
+  add is modulo 2^32, and a count at or above ``SAT_THRESHOLD``
+  (0xE0000000) takes no further add: after 0xE0000000 and then 5 the
+  count stays 0xE0000000 (a freeze, not a clamp;
+  ``kernels.hash.SAT_THRESHOLD``). Histograms, sums, compares and the
+  numpy boundary widen the counts with ``& 0xFFFFFFFF`` to int64
+  (``kernels.hash.as_u32``).
+* ``claims``: int64 ``[1]``, the slots the inserts claimed: the
+  occupancy, read by ``n_unique`` without a sweep of the table.
 
 Unlike the JAX class, the table updates in place (``insert_kmers``
 returns ``self``; a grow replaces the tensors). The slot layout never
@@ -31,7 +37,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.hash import as_u32, hash_insert, hash_lookup
+from ..kernels.hash import (
+    as_u32,
+    hash_insert,
+    hash_lookup,
+    new_slots,
+    slot_counts,
+    slot_keys,
+)
 from .encoding import canonical_kmers, revcomp_kmer
 from .histogram import histogram as _histogram
 from .histogram import revcomp
@@ -49,13 +62,34 @@ def _member(sorted_set: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return sorted_set[idx] == values
 
 
+def batch_keys(kmers, device) -> torch.Tensor:
+    """A flat int64 key batch on ``device``: numpy uint64 (through the
+    key codec) or an int64 tensor."""
+    if isinstance(kmers, torch.Tensor):
+        if kmers.dtype != torch.int64:
+            raise TypeError(f"keys must be int64, got {kmers.dtype}")
+        return kmers.to(device).reshape(-1).contiguous()
+    return keys_to_device(kmers, device)
+
+
+def batch_amounts(counts, device) -> torch.Tensor:
+    """u32 amounts as int32 bit patterns on ``device``: numpy (cast to
+    uint32) or an int32 tensor of bit patterns."""
+    if isinstance(counts, torch.Tensor):
+        if counts.dtype != torch.int32:
+            raise TypeError(f"counts must be int32, got {counts.dtype}")
+        return counts.to(device).reshape(-1).contiguous()
+    arr = np.ascontiguousarray(np.asarray(counts, np.uint32)).reshape(-1)
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
 @dataclass
 class KmerTable:
     """The device-resident hash count table."""
 
     k: int
-    keys: torch.Tensor  # int64 [capacity], SENTINEL = empty
-    counts: torch.Tensor  # int32 [capacity], u32 bit patterns
+    slots: torch.Tensor  # int64 [capacity, 2]: key, u32 count + 4 B pad
+    claims: torch.Tensor  # int64 [1]: occupied slots
     device: torch.device
 
     @staticmethod
@@ -63,41 +97,34 @@ class KmerTable:
         if capacity <= 0 or capacity & (capacity - 1):
             raise ValueError("capacity must be a power of two")
         device = torch.device(device)
-        keys = torch.full((capacity,), SENTINEL, dtype=torch.int64,
-                          device=device)
-        counts = torch.zeros(capacity, dtype=torch.int32, device=device)
-        return KmerTable(k, keys, counts, device)
+        return KmerTable(k, new_slots((capacity,), device),
+                         torch.zeros(1, dtype=torch.int64, device=device),
+                         device)
 
     @property
     def capacity(self) -> int:
-        return self.keys.shape[0]
+        return self.slots.shape[0]
 
-    def _keys(self, kmers) -> torch.Tensor:
-        if isinstance(kmers, torch.Tensor):
-            if kmers.dtype != torch.int64:
-                raise TypeError(f"keys must be int64, got {kmers.dtype}")
-            return kmers.to(self.device).reshape(-1).contiguous()
-        return keys_to_device(kmers, self.device)
+    @property
+    def keys(self) -> torch.Tensor:
+        """int64 [capacity] keys, SENTINEL = empty (a view)."""
+        return slot_keys(self.slots)
 
-    def _amounts(self, counts) -> torch.Tensor:
-        """u32 amounts as int32 bit patterns: numpy (cast to uint32) or
-        an int32 tensor of bit patterns (another table's counts)."""
-        if isinstance(counts, torch.Tensor):
-            if counts.dtype != torch.int32:
-                raise TypeError(f"counts must be int32, got {counts.dtype}")
-            return counts.to(self.device).reshape(-1).contiguous()
-        arr = np.ascontiguousarray(np.asarray(counts, np.uint32)).reshape(-1)
-        return torch.from_numpy(arr.view(np.int32)).to(self.device)
+    @property
+    def counts(self) -> torch.Tensor:
+        """int32 [capacity] u32 count bit patterns (a view)."""
+        return slot_counts(self.slots)
 
     # -- ingest --------------------------------------------------------------
 
     def insert_kmers(self, kmers, counts=None) -> "KmerTable":
         """Insert a flat batch of canonical k-mers (SENTINEL entries
         skipped), each adding 1 or its ``counts`` entry."""
-        kmers = self._keys(kmers)
-        amounts = None if counts is None else self._amounts(counts)
+        kmers = batch_keys(kmers, self.device)
+        amounts = None if counts is None else batch_amounts(counts,
+                                                            self.device)
         self._maybe_grow(kmers.shape[0])
-        hash_insert(self.keys, self.counts, kmers, amounts)
+        hash_insert(self.slots, self.claims, kmers, amounts)
         return self
 
     def ingest_codes(self, codes) -> "KmerTable":
@@ -108,11 +135,14 @@ class KmerTable:
         return self.insert_kmers(kmers.reshape(-1))
 
     def merge_from(self, other: "KmerTable") -> "KmerTable":
-        """Fold another table's slots into this one: the insert kernel
-        skips its empty slots."""
+        """Fold another table's slots into this one (every slot counts as
+        incoming, as in JAX): the insert kernel reads each source slot's
+        key and count at once and skips the empty ones."""
         if other.k != self.k:
             raise ValueError("k mismatch in merge_from")
-        return self.insert_kmers(other.keys, other.counts)
+        self._maybe_grow(other.capacity)
+        hash_insert(self.slots, self.claims, other.slots)
+        return self
 
     def _maybe_grow(self, incoming: int) -> None:
         """The JAX growth rule: double while the occupancy plus every
@@ -122,25 +152,25 @@ class KmerTable:
             self._grow()
 
     def _grow(self) -> None:
-        """Rehash into twice the capacity through the insert kernel."""
-        keys = torch.full((2 * self.capacity,), SENTINEL, dtype=torch.int64,
-                          device=self.device)
-        counts = torch.zeros(2 * self.capacity, dtype=torch.int32,
-                             device=self.device)
-        hash_insert(keys, counts, self.keys, self.counts)
-        self.keys, self.counts = keys, counts
+        """Rehash into twice the capacity: the old slots feed the insert
+        kernel."""
+        slots = new_slots((2 * self.capacity,), self.device)
+        claims = torch.zeros_like(self.claims)
+        hash_insert(slots, claims, self.slots)
+        self.slots, self.claims = slots, claims
 
     # -- queries -------------------------------------------------------------
 
     def lookup(self, queries) -> np.ndarray:
         """Counts (uint32) of canonical queries, 0 when absent."""
-        out = hash_lookup(self.keys, self.counts, self._keys(queries))
+        out = hash_lookup(self.slots, batch_keys(queries, self.device))
         return out.cpu().numpy().view(np.uint32)
 
     def lookup_directional(self, queries) -> np.ndarray:
         """Counts (uint32) of directional k-mers, canonicalized (min of
         the k-mer and its revcomp) in the kernel."""
-        out = hash_lookup(self.keys, self.counts, self._keys(queries), self.k)
+        out = hash_lookup(self.slots, batch_keys(queries, self.device),
+                          self.k)
         return out.cpu().numpy().view(np.uint32)
 
     def histogram(self, histo_max: int) -> np.ndarray:
@@ -148,7 +178,8 @@ class KmerTable:
         return _histogram(as_u32(self.counts), histo_max)
 
     def n_unique(self) -> int:
-        return int((self.keys != SENTINEL).sum())
+        """Occupied slots: the inserts' claim counter, one number read."""
+        return int(self.claims.sum())
 
     def n_total(self) -> int:
         return int(as_u32(self.counts).sum())

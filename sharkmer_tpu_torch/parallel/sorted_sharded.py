@@ -1,5 +1,6 @@
 """Sorted-run count store sharded by owner: ``ShardedSortedStore``
-(``--backend sorted --n-shards S``).
+(``--backend sorted --n-shards S``), and ``make_sorted_ingest_step``, the
+fused sharded ingest step on the sorted backend.
 
 Torch port of ``sharkmer_tpu.parallel.sorted_sharded``. The keyspace is
 split by the high bits of the SplitMix64 hash (``kernels/hash.owner``);
@@ -28,8 +29,7 @@ engine's one device:
   by shard.
 
 Bit-identical to the single store by construction: the same aggregation
-arithmetic, and ownership only partitions the keyspace. Left out:
-``make_sorted_ingest_step`` (the JAX fused ingest step, no CLI caller).
+arithmetic, and ownership only partitions the keyspace.
 """
 
 from __future__ import annotations
@@ -58,6 +58,21 @@ from ..ops.sorted_store import (
     packed_count_bits,
 )
 from .sharded_reach import ShardedSpcrIndex, sharded_range_scan
+
+
+def _by_owner(kmers, counts, n_shards: int) -> list:
+    """The batch grouped by owner shard (SENTINEL entries dropped): one
+    stable sort of the owners and one host read of the group sizes; each
+    shard's (keys, counts) in batch order."""
+    own = torch.where(kmers != SENTINEL, owner(kmers, n_shards), n_shards)
+    order = torch.sort(own, stable=True).indices
+    sizes = torch.bincount(own, minlength=n_shards + 1)[:n_shards].tolist()
+    kmers, counts = kmers[order], counts[order]
+    groups, pos = [], 0
+    for size in sizes:
+        groups.append((kmers[pos : pos + size], counts[pos : pos + size]))
+        pos += size
+    return groups
 
 
 @dataclass
@@ -123,22 +138,12 @@ class ShardedSortedStore:
 
     def _owned_runs(self, kmers, counts) -> list:
         """Each shard's aggregated run of the keys it owns."""
-        S = self.n_shards
-        own = torch.where(kmers != SENTINEL, owner(kmers, S), S)
-        order = torch.sort(own, stable=True).indices
-        sizes = torch.bincount(own, minlength=S + 1)[:S].tolist()
-        kmers, counts = kmers[order], counts[order]
-        runs, pos = [], 0
-        for size in sizes:
-            if size:
-                uk, uc, nu = _aggregate(kmers[pos : pos + size],
-                                        counts[pos : pos + size],
-                                        packed_count_bits(self.k))
+        runs = []
+        for uk, uc in _by_owner(kmers, counts, self.n_shards):
+            if uk.numel():
+                uk, uc, nu = _aggregate(uk, uc, packed_count_bits(self.k))
                 uk, uc = uk[:nu], uc[:nu]
-            else:
-                uk, uc = kmers[:0], counts[:0]
             runs.append((uk, uc))
-            pos += size
         return runs
 
     def ingest_codes(self, codes) -> "ShardedSortedStore":
@@ -284,3 +289,42 @@ class ShardedSortedStore:
     def to_dict(self) -> dict[int, int]:
         keys, counts = self.to_sorted_arrays()
         return dict(zip(keys.tolist(), counts.tolist()))
+
+
+def make_sorted_ingest_step(mesh: int, k: int, histo_max: int, cap: int):
+    """The fused sharded ingest step on the sorted backend (the JAX
+    ``make_sorted_ingest_step``): encode every shard's slice of the
+    reads, route each k-mer to its owner shard (``_by_owner``; JAX
+    all-gathers the batch and masks it on every shard), aggregate each
+    shard's master run with its new k-mers (``_aggregate``, on the
+    ``run_starts`` kernel), cut the result at ``cap`` (JAX's
+    ``lax.slice``: the largest keys past ``cap`` are dropped), and the
+    histogram summed over the shards.
+
+    Returns step(kmers, counts, codes) -> (kmers, counts, histo) where
+      kmers/counts: int64 [S, cap], each row sorted with a sentinel tail
+        (a ``ShardedSortedStore``'s masters);
+      codes: uint8 [S, reads_per_shard, width] (numpy or a tensor);
+      histo: uint64 [histo_max+2] (numpy).
+    """
+    n_shards = int(mesh)
+
+    def step(kmers, counts, codes):
+        if tuple(kmers.shape) != (n_shards, cap):
+            raise ValueError(f"masters {tuple(kmers.shape)} are not "
+                             f"{(n_shards, cap)}")
+        codes = torch.as_tensor(np.asarray(codes, np.uint8),
+                                device=kmers.device)
+        batch, _ = canonical_kmers(codes.reshape(-1, codes.shape[-1]), k)
+        batch = batch.reshape(-1)
+        out_k = torch.full_like(kmers, SENTINEL)
+        out_c = torch.zeros_like(counts)
+        groups = _by_owner(batch, torch.ones_like(batch), n_shards)
+        for s, (mine, ones) in enumerate(groups):
+            mk, mc, _ = _aggregate(torch.cat([kmers[s], mine]),
+                                   torch.cat([counts[s], ones]),
+                                   packed_count_bits(k))
+            out_k[s], out_c[s] = mk[:cap], mc[:cap]
+        return out_k, out_c, _histogram(out_c.reshape(-1), histo_max)
+
+    return step

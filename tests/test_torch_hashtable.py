@@ -6,10 +6,12 @@ CPU) and ``sharkmer_tpu_torch`` (torch on the CPU, where ``hash_insert``
 and ``hash_lookup`` run their plain versions, the JAX claim/probe and
 probe loops). Counts are integers, so every comparison is exact: the
 table's contents, the grown capacity, lookups, histograms, totals and
-primer scans (compared as sorted pairs). A numpy model of the CUDA
-kernel's per-entry protocol (probe, CAS claim, freeze-checked add), run
+primer scans (compared as sorted pairs), on the 16 B slot layout. A
+numpy model of the CUDA kernel's per-entry protocol (one 16 B slot load,
+CAS claim, freeze-checked add, the claim counter, owner routing), run
 under random interleavings of its threads, must give the JAX table's
-contents too: the atomics' order does not matter.
+contents too, shard for shard, with claim counters equal to the occupied
+slots: the atomics' order does not matter.
 """
 
 import collections
@@ -23,6 +25,8 @@ from sharkmer_tpu.ops import ascii_to_codes, codes_to_batch, kmers_from_ascii_re
 from sharkmer_tpu.ops.encoding import kmer_to_seq, seq_to_kmer
 from sharkmer_tpu.ops.hashtable import _mix64
 from sharkmer_tpu.ops.histogram import histogram_from_counts
+from sharkmer_tpu.parallel import make_mesh
+from sharkmer_tpu.parallel.sharded_table import ShardedKmerTable as JaxShardedTable
 from sharkmer_tpu_torch.kernels import hash as hash_kernels
 from sharkmer_tpu_torch.kernels.hash import SAT_THRESHOLD
 from sharkmer_tpu_torch.ops.hashtable import KmerTable
@@ -357,29 +361,66 @@ def test_mix64_matches_jax():
 
 def test_wrappers_take_the_plain_path_on_cpu():
     """On CPU tensors the wrappers are their plain versions and count
-    no launch; the counts' u32 codec round-trips."""
+    no launch, on one table and on owner shards, from keys and from
+    another table's slots; the claim counters equal the occupied slots;
+    the counts' u32 codec round-trips."""
     rng = np.random.default_rng(2)
     kmers = torch.from_numpy(rng.integers(0, 1 << 40, size=3000))
     kmers[::5] = SENTINEL
-    tables = []
-    for fn in (hash_kernels.hash_insert, hash_kernels.insert_plain):
-        keys = torch.full((1 << 13,), SENTINEL, dtype=torch.int64)
-        counts = torch.zeros(1 << 13, dtype=torch.int32)
-        fn(keys, counts, kmers)
-        tables.append((keys, counts))
-    assert all(torch.equal(a, b) for a, b in zip(*tables))
-    q = kmers[:100]
-    np.testing.assert_array_equal(
-        hash_kernels.hash_lookup(*tables[0], q).numpy(),
-        hash_kernels.lookup_plain(*tables[0], q).numpy())
+    for shape in ((1 << 13,), (4, 1 << 11)):
+        tables = []
+        for fn in (hash_kernels.hash_insert, hash_kernels.insert_plain):
+            slots = hash_kernels.new_slots(shape, "cpu")
+            claims = torch.zeros(shape[0] if len(shape) == 2 else 1,
+                                 dtype=torch.int64)
+            fn(slots, claims, kmers)
+            tables.append((slots, claims))
+            occupied = hash_kernels.slot_keys(slots) != SENTINEL
+            assert torch.equal(claims, occupied.reshape(claims.shape[0], -1)
+                               .sum(1))
+            # a rehash from the slots: the same rows in each shard, the
+            # same claims
+            again = hash_kernels.new_slots(shape, "cpu")
+            again_claims = torch.zeros_like(claims)
+            fn(again, again_claims, slots.view(-1, 2))
+            assert torch.equal(again_claims, claims)
+            for a, b in zip(again.view(claims.shape[0], -1, 2),
+                            slots.view(claims.shape[0], -1, 2)):
+                assert torch.equal(torch.sort(a[:, 0]).values,
+                                   torch.sort(b[:, 0]).values)
+                assert torch.equal(a[torch.argsort(a[:, 0])],
+                                   b[torch.argsort(b[:, 0])])
+        assert all(torch.equal(a, b) for a, b in zip(*tables))
+        q = kmers[:100]
+        np.testing.assert_array_equal(
+            hash_kernels.hash_lookup(tables[0][0], q).numpy(),
+            hash_kernels.lookup_plain(tables[0][0], q).numpy())
     assert hash_kernels.hash_insert.launches == 0
     assert hash_kernels.hash_lookup.launches == 0
     u = torch.tensor([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF])
     assert torch.equal(hash_kernels.as_u32(hash_kernels.as_i32(u)), u)
-    full = torch.full((4,), SENTINEL, dtype=torch.int64)
+    full = hash_kernels.new_slots((4,), "cpu")
     with pytest.raises(RuntimeError, match="table full"):
-        hash_kernels.insert_plain(full, torch.zeros(4, dtype=torch.int32),
+        hash_kernels.insert_plain(full, torch.zeros(1, dtype=torch.int64),
                                   torch.arange(5, dtype=torch.int64))
+
+
+def test_slot_layout():
+    """16 B a slot: the key at byte 0, the u32 count at byte 8, 4 B of
+    zeros; the table's ``keys`` and ``counts`` are views of its slots."""
+    p, _ = insert_both(*both(11, 1 << 6), [5, 9], [7, 0xFFFFFFFF])
+    raw = p.slots.numpy().view(np.uint8).reshape(-1, 16)
+    assert p.slots.shape == (1 << 6, 2) and p.slots.dtype == torch.int64
+    occupied = raw[:, :8].copy().view(np.int64)[:, 0] != SENTINEL
+    assert occupied.sum() == 2 and p.n_unique() == 2
+    got = {int(r[:8].copy().view(np.int64)[0]): int(r[8:12].copy().view(
+        np.uint32)[0]) for r in raw[occupied]}
+    assert got == {5: 7, 9: 0xFFFFFFFF}
+    assert not raw[:, 12:].any()
+    assert (raw[~occupied, 8:] == 0).all()
+    assert p.keys.data_ptr() == p.slots.data_ptr()
+    assert p.counts.data_ptr() == p.slots.data_ptr() + 8
+    assert p.keys.stride() == (2,) and p.counts.stride() == (4,)
 
 
 # -- a numpy model of the CUDA kernel's per-entry protocol ------------------
@@ -394,64 +435,92 @@ def _mix64_int(x: int) -> int:
     return x ^ (x >> 33)
 
 
-def kernel_model(keys, counts, kmers, amounts, rng):
-    """``hash_insert_kernel`` thread by thread, in place: each step is
-    one memory action of one thread (load the slot's key, CAS it, load
-    the count, add), and every step runs a thread drawn at random, so
-    the threads interleave as racing warps may. ``keys`` holds Python
-    ints, SENTINEL for empty."""
-    cap = len(keys)
-    threads = [[int(km), int(a), _mix64_int(int(km)) & (cap - 1), "load", 0]
-               for km, a in zip(kmers, amounts) if int(km) != SENTINEL]
+def kernel_model(keys, counts, claims, kmers, amounts, rng):
+    """``hash_insert_kernel`` thread by thread, in place, on S owner
+    shards (``keys[s]``, ``counts[s]``: Python ints, SENTINEL for an
+    empty key). Each step is one memory action of one thread: the 16 B
+    load of a slot (key and count at once), the CAS of its key word, the
+    re-read of the count after a CAS that found the thread's own key, the
+    add; every step runs a thread drawn at random, so the threads
+    interleave as racing warps may. A thread that claims a slot counts
+    it in its block's counter for its shard, and the blocks' counters
+    reach ``claims`` when the launch ends."""
+    n_shards, cap = len(keys), len(keys[0])
+    threads = []
+    for km, a in zip(kmers, amounts):
+        if int(km) == SENTINEL:
+            continue
+        h = _mix64_int(int(km))
+        shard = (h >> 40) % n_shards if n_shards > 1 else 0
+        threads.append({"key": int(km), "amount": int(a), "shard": shard,
+                        "slot": h & (cap - 1), "state": "load", "probes": 0,
+                        "claimed": False})
+    block = [0] * n_shards
     while threads:
         i = int(rng.integers(len(threads)))
         t = threads[i]
-        key, amount, slot, state, probes = t
-        done = False
-        if state == "load":
-            cur = keys[slot]
-            if cur == SENTINEL:
-                t[3] = "cas"
-            elif cur == key:
-                t[3] = "count"
+        tk, tc = keys[t["shard"]], counts[t["shard"]]
+        slot, done = t["slot"], False
+
+        def freeze_check(count):
+            return "add" if t["amount"] != 0 and count < SAT_THRESHOLD \
+                else "done"
+
+        if t["state"] == "load":
+            cur, count = tk[slot], tc[slot]
+            if cur == t["key"]:
+                t["state"] = freeze_check(count)
+            elif cur == SENTINEL:
+                t["state"] = "cas"
             else:
-                t[2], t[4] = (slot + 1) & (cap - 1), probes + 1
-        elif state == "cas":
-            cur = keys[slot]
-            if cur == SENTINEL:
-                keys[slot] = cur = key
-            if cur == key:
-                t[3] = "count"
+                t["slot"], t["probes"] = (slot + 1) & (cap - 1), t["probes"] + 1
+        elif t["state"] == "cas":
+            prev = tk[slot]
+            if prev == SENTINEL:
+                tk[slot] = t["key"]
+                t["claimed"] = True
+                t["state"] = freeze_check(0)
+            elif prev == t["key"]:
+                t["state"] = "reload"
             else:
-                t[2], t[3], t[4] = (slot + 1) & (cap - 1), "load", probes + 1
-        elif state == "count":
-            if amount != 0 and counts[slot] < SAT_THRESHOLD:
-                t[3] = "add"
-            else:
-                done = True
+                t["slot"], t["state"] = (slot + 1) & (cap - 1), "load"
+                t["probes"] += 1
+        elif t["state"] == "reload":
+            t["state"] = freeze_check(tc[slot])
         else:  # add
-            counts[slot] = (counts[slot] + amount) & 0xFFFFFFFF
-            done = True
-        assert t[4] < cap, "overflow"
-        if done:
+            tc[slot] = (tc[slot] + t["amount"]) & 0xFFFFFFFF
+            t["state"] = "done"
+        assert t["probes"] < cap, "overflow"
+        if t["state"] == "done":
+            block[t["shard"]] += t["claimed"]
             threads[i] = threads[-1]
             threads.pop()
+    for s in range(n_shards):
+        claims[s] += block[s]
 
 
+@pytest.mark.parametrize("n_shards", [1, 4])
 @pytest.mark.parametrize("seed", range(4))
-def test_kernel_protocol_is_order_independent(seed):
+def test_kernel_protocol_is_order_independent(seed, n_shards):
     """Batches with heavy duplication, explicit amounts, zero adds,
-    sentinels and a frozen count, into a small table with long probe
+    sentinels and a frozen count, into small shards with long probe
     chains: under any interleaving the model's contents equal the JAX
-    table's after the same inserts."""
+    table's after the same inserts (shard for shard: the JAX sharded
+    table on an S-device mesh), and each shard's claim counter equals its
+    occupied slots."""
     rng = np.random.default_rng(100 + seed)
-    cap = 1 << 9
-    keys = [SENTINEL] * cap
-    counts = [0] * cap
-    _, j = both(21, cap)
+    cap = (1 << 9) // n_shards
+    keys = [[SENTINEL] * cap for _ in range(n_shards)]
+    counts = [[0] * cap for _ in range(n_shards)]
+    claims = [0] * n_shards
+    if n_shards == 1:
+        _, j = both(21, cap)
+    else:
+        j = JaxShardedTable.create(21, make_mesh(n_shards),
+                                   local_capacity=cap)
     frozen = np.array([12345], np.uint64)
     j = j.insert_kmers(frozen, np.array([SAT_THRESHOLD], np.uint32))
-    kernel_model(keys, counts, frozen, [SAT_THRESHOLD], rng)
+    kernel_model(keys, counts, claims, frozen, [SAT_THRESHOLD], rng)
     for _ in range(3):
         distinct = rng.integers(0, 1 << 42, size=60, dtype=np.uint64)
         batch = rng.choice(np.concatenate([distinct, frozen]), size=300)
@@ -459,7 +528,16 @@ def test_kernel_protocol_is_order_independent(seed):
         amounts = rng.integers(0, 4, size=300).astype(np.uint32)
         j = j.insert_kmers(batch, amounts)
         dev = [SENTINEL if b == EMPTY else int(b) for b in batch]
-        kernel_model(keys, counts, dev, amounts.tolist(), rng)
-    got = {key: c for key, c in zip(keys, counts) if key != SENTINEL}
-    assert got == j.to_dict()
-    assert got[12345] == SAT_THRESHOLD
+        kernel_model(keys, counts, claims, dev, amounts.tolist(), rng)
+    got = [{key: c for key, c in zip(ks, cs) if key != SENTINEL}
+           for ks, cs in zip(keys, counts)]
+    assert claims == [len(g) for g in got]
+    if n_shards == 1:
+        want = [j.to_dict()]
+    else:
+        jk, jc = np.asarray(j.keys), np.asarray(j.counts)
+        want = [{int(key): int(c) for key, c in zip(jk[s], jc[s])
+                 if key != EMPTY} for s in range(n_shards)]
+    assert got == want
+    assert sum(len(g) for g in got) == j.n_unique()
+    assert any(g.get(12345) == SAT_THRESHOLD for g in got)

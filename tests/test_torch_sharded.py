@@ -5,11 +5,14 @@ The JAX tables shard over the conftest's 8 virtual CPU devices, so a JAX
 table of S shards really runs on an S-device mesh; the port's S logical
 shards on the CPU must match it shard for shard: each shard's contents,
 the grown local capacity, histograms, lookups, primer scans, the sharded
-reach closure (on the port's owner-routed plain probes), the chunked
-engine's spectra and the CLI's output files (``test_torch_cli.py`` runs
-the sorted store under ``--mirror auto``, ``test_torch_hash_cli.py``
-loads checkpoints into a sharded table). Keys and counts are integers,
-so every comparison is exact.
+reach closure (on the port's owner-routed plain probes), the fused
+ingest steps (``make_ingest_step``, ``make_sorted_ingest_step``), the
+chunked engine's spectra and the CLI's output files
+(``test_torch_cli.py`` runs the sorted store under ``--mirror auto``,
+``test_torch_hash_cli.py`` loads checkpoints into a sharded table). The
+routed insert and lookup are held to their S-masked form, and the claim
+counters to a sweep of the slots. Keys and counts are integers, so
+every comparison is exact.
 """
 
 import collections
@@ -30,9 +33,11 @@ from sharkmer_tpu.parallel.sharded_table import ShardedKmerTable as JaxTable
 from sharkmer_tpu.parallel.sorted_sharded import ShardedSortedStore as JaxStore
 from sharkmer_tpu_torch.engine import CountingEngine
 from sharkmer_tpu_torch.kernels import closure, probe
+from sharkmer_tpu_torch.kernels.hash import owner as _owner
+from sharkmer_tpu_torch.kernels.hash import slot_counts, slot_keys
 from sharkmer_tpu_torch.main import main as torch_main
 from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
-from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable, _owner
+from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
 from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 
 from data_18s import READ_STRING
@@ -279,6 +284,194 @@ def test_owner_routed_probes(reach_stores):
     assert bool((hit // got.local_capacity == own[: keys.shape[0]]).all())
 
 
+# -- owner routing in one launch, the claim counter, the fused steps --------------
+
+
+def test_routed_insert_and_lookup_match_the_masked_form():
+    """One routed insert into ``[S, cap, 2]`` slots, from keys with
+    amounts and from another table's slots, gives each shard the rows and
+    the claim count of S inserts into separate tables, each of the batch
+    masked to the shard's keys; one routed lookup equals the sum of the S
+    masked lookups."""
+    import torch
+
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    rng = np.random.default_rng(12)
+    k, S, cap = 15, 4, 1 << 10
+    kmers = torch.from_numpy(rng.integers(0, 1 << 30, size=1500))
+    kmers = torch.cat([kmers, kmers[:700]])
+    kmers[rng.random(kmers.numel()) < 0.1] = hk.SENTINEL
+    amounts = torch.from_numpy(rng.integers(0, 5, size=kmers.numel())
+                               .astype(np.int32))
+    own = _owner(kmers, S)
+    routed = hk.new_slots((S, cap), "cpu")
+    claims = torch.zeros(S, dtype=torch.int64)
+    hk.hash_insert(routed, claims, kmers, amounts)
+    again = hk.new_slots((S, cap), "cpu")
+    again_claims = torch.zeros(S, dtype=torch.int64)
+    hk.hash_insert(again, again_claims, routed.view(-1, 2))
+    masked = []
+    for s in range(S):
+        slots = hk.new_slots((cap,), "cpu")
+        one = torch.zeros(1, dtype=torch.int64)
+        hk.hash_insert(slots, one, torch.where(own == s, kmers, hk.SENTINEL),
+                       amounts)
+        masked.append(slots)
+        want = _shard_rows(keys_to_numpy(hk.slot_keys(slots)),
+                           hk.slot_counts(slots).numpy().view(np.uint32))
+        for table, counters in ((routed, claims), (again, again_claims)):
+            got = _shard_rows(keys_to_numpy(hk.slot_keys(table[s])),
+                              hk.slot_counts(table[s]).numpy()
+                              .view(np.uint32))
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert int(counters[s]) == int(one) == len(want[0])
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    queries = torch.cat([kmers[:800], revcomp(kmers[800:1200], k),
+                         torch.from_numpy(rng.integers(0, 1 << 30, size=300))])
+    for kk in (0, k):
+        canon = queries if not kk else torch.minimum(queries,
+                                                     revcomp(queries, kk))
+        got = hk.hash_lookup(routed, queries, kk)
+        own_q = _owner(canon, S)
+        want = sum(hk.as_u32(hk.hash_lookup(
+            masked[s], torch.where(own_q == s, canon, hk.SENTINEL)))
+            for s in range(S))
+        assert torch.equal(hk.as_u32(got), want)
+        assert int((got != 0).sum()) > 300
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_n_unique_reads_the_claim_counter(tmp_path, reads, n_shards):
+    """``n_unique()`` is the claim counter, and equals a sweep of the
+    slots after inserts that grow the table, ``merge_from`` and a
+    checkpoint load."""
+    from sharkmer_tpu_torch.io.checkpoint import load_table, save_table
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+
+    _genome, rs = reads
+    k = 19
+
+    def make(cap):
+        if n_shards == 1:
+            return KmerTable.create(k, cap, "cpu")
+        return ShardedKmerTable.create(k, n_shards, cap // n_shards, "cpu")
+
+    def check(table):
+        occupied = int((table.slots[..., 0] != (1 << 63) - 1).sum())
+        assert table.n_unique() == int(table.claims.sum()) == occupied > 0
+        assert table.n_unique() == len(table.to_dict())
+
+    batches = _batches(rs, 3)
+    table = make(1 << 8)
+    for codes in batches[:2]:
+        table = table.ingest_codes(codes)
+        check(table)
+    assert table.slots[..., 0].numel() > 1 << 8  # it grew
+    other = make(1 << 9).ingest_codes(batches[2])
+    check(other)
+    table = table.merge_from(other)
+    check(table)
+    path = str(tmp_path / "t.npz")
+    save_table(path, table)
+    loaded, _ = load_table(path, "cpu", n_shards=n_shards, backend="hash")
+    assert type(loaded) is type(table)
+    check(loaded)
+    assert loaded.to_dict() == table.to_dict()
+
+
+def _shard_codes(rs, n_shards, per):
+    """uint8 [n_shards, per, width]: consecutive reads, ``per`` a shard."""
+    codes = codes_to_batch([ascii_to_codes(r) for r in rs[: n_shards * per]])
+    return codes.reshape(n_shards, per, codes.shape[-1])
+
+
+def _jax_sharded(mesh, codes):
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    return jax.device_put(codes, NamedSharding(mesh, P(jax_sharded_table.AXIS,
+                                                        None, None)))
+
+
+def test_make_ingest_step_matches_jax(reads):
+    """Two fused steps on a 4-device mesh (JAX) and on 4 logical shards
+    (the port, one routed insert a step): each shard's rows, its claim
+    count and the summed histogram equal."""
+    from sharkmer_tpu.parallel.sharded_table import (
+        make_ingest_step as jax_make_ingest_step,
+    )
+    from sharkmer_tpu_torch.parallel.sharded_table import (
+        make_ingest_step,
+        make_mesh as port_make_mesh,
+    )
+
+    _genome, rs = reads
+    k, S, histo_max, per = 17, 4, 60, 100
+    mesh = make_mesh(S)
+    jax_step = jax_make_ingest_step(mesh, k, histo_max)
+    step = make_ingest_step(port_make_mesh(S), k, histo_max)
+    want = JaxTable.create(k, mesh, local_capacity=1 << 12)
+    keys, counts = want.keys, want.counts
+    got = ShardedKmerTable.create(k, S, 1 << 12, "cpu")
+    slots, claims = got.slots, got.claims
+    for half in (rs[: S * per], rs[S * per :]):
+        codes = _shard_codes(half, S, per)
+        keys, counts, jax_histo = jax_step(keys, counts,
+                                           _jax_sharded(mesh, codes))
+        slots, claims, histo = step(slots, claims, codes)
+        assert histo.dtype == np.uint64
+        np.testing.assert_array_equal(histo, np.asarray(jax_histo))
+        for s in range(S):
+            wk, wc = _shard_rows(keys[s], counts[s])
+            gk, gc = _shard_rows(keys_to_numpy(slot_keys(slots[s])),
+                                 slot_counts(slots[s]).numpy()
+                                 .view(np.uint32))
+            np.testing.assert_array_equal(gk, wk)
+            np.testing.assert_array_equal(gc, wc)
+            assert int(claims[s]) == len(wk)
+    assert slots is got.slots and got.n_unique() == int(np.sum(histo[1:]))
+    with pytest.raises(ValueError):
+        step(ShardedKmerTable.create(k, 2, 1 << 6, "cpu").slots, claims,
+             codes)
+
+
+@pytest.mark.parametrize("cap", [1 << 12, 1 << 8])
+def test_make_sorted_ingest_step_matches_jax(reads, cap):
+    """Two fused sorted steps on a 4-device mesh (JAX) and on 4 logical
+    shards (the port): each shard's master row, its counts and the summed
+    histogram equal; at 2^8 a shard's keys pass ``cap`` and both cut the
+    largest keys away."""
+    from sharkmer_tpu.parallel.sorted_sharded import (
+        make_sorted_ingest_step as jax_make_sorted_ingest_step,
+    )
+    from sharkmer_tpu_torch.parallel.sorted_sharded import (
+        make_sorted_ingest_step,
+    )
+
+    _genome, rs = reads
+    k, S, histo_max, per = 17, 4, 60, 100
+    mesh = make_mesh(S)
+    jax_step = jax_make_sorted_ingest_step(mesh, k, histo_max, cap)
+    step = make_sorted_ingest_step(S, k, histo_max, cap)
+    want = JaxStore.create(k, mesh, local_capacity=cap)
+    jk, jc = want.kmers, want.counts
+    got = ShardedSortedStore.create(k, S, cap, "cpu")
+    pk, pc = got.kmers, got.counts
+    for half in (rs[: S * per], rs[S * per :]):
+        codes = _shard_codes(half, S, per)
+        jk, jc, jax_histo = jax_step(jk, jc, _jax_sharded(mesh, codes))
+        pk, pc, histo = step(pk, pc, codes)
+        np.testing.assert_array_equal(histo, np.asarray(jax_histo))
+        np.testing.assert_array_equal(keys_to_numpy(pk), np.asarray(jk))
+        np.testing.assert_array_equal(pc.numpy().astype(np.uint32),
+                                      np.asarray(jc))
+    full = bool((pk != (1 << 63) - 1).all())
+    assert full == (cap == 1 << 8)
+
+
 # -- the engine and the CLI ----------------------------------------------------------
 
 
@@ -336,7 +529,8 @@ def _assert_same_outputs(a_dir, b_dir):
 @pytest.mark.parametrize("extra", [
     ["--mirror", "full"],
     ["--backend", "hash", "--chunks", "4"],
-], ids=["sorted-full", "hash-chunks"])
+    ["--backend", "hash", "--mirror", "device"],
+], ids=["sorted-full", "hash-chunks", "hash-device"])
 def test_cli_sharded_outputs_identical(tmp_path, fastq_18s, extra):
     """``--n-shards 4`` in both CLIs, byte-identical outputs (the sorted
     store under ``--mirror auto`` is in ``test_torch_cli.py``)."""
