@@ -79,6 +79,21 @@ Phases, each printed on its own lines; every check raises on failure:
 17. the chunked spectra: ``--chunks 10`` on the first 250k reads, sorted
     and hash, at 1 and 4 shards, against the JAX package's ``.histo``,
     ``.final.histo``, FASTA and ``stats.yaml`` in ``oracles/``.
+    Phases 14-17 leave ``SHARKMER_TORCH_DEVICES`` unset: on one card the
+    4 shards are one group, on several a group a card on the first
+    ``min(4, cards)`` cards;
+18. the shards placed on a device list, ``SHARKMER_TORCH_DEVICES=cuda:0,
+    cuda:0,cuda:0,cuda:0``: four shard groups in separate allocations on
+    the one card, the code path of four cards (``groups_phase``): phase
+    8's batch as four windowed ``hash_insert`` launches, exact against
+    the windowed plain version and the one-launch table, each timed; the
+    pointer-table ``hash_lookup`` (a 4096-query wave and 2^20 queries);
+    phase 13's closures over shards placed on the list; then the 1M cell
+    with ``--n-shards 4`` on the sorted backend, on the hash backend with
+    ``--mirror device``, and ``--load-table`` of phase 9's checkpoint.
+    Where two or more cards are visible, the same again on distinct
+    cards (``cuda:0,cuda:1,...``), after the dependent-load latency into
+    a peer's DRAM; otherwise one line says that part did not run.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -88,19 +103,20 @@ Each kernel's launch count is reset just before each main-path run and
 read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
 warm starts) must launch in phases 4 and 5 (``run_starts`` also in 14
 and in 17's sorted runs), ``stitch_rows`` in phases 5 and 7,
-``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14 and 17 (sorted) at
-least once per closure call (the run's ``closures`` sPCR phase), where
-``probe_rows`` may launch no more often than that, the plain closure
-loop must never run and no sorted store's host mirror may be built
+``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted) and 18
+(sorted) at least once per closure call (the run's ``closures`` sPCR
+phase), where ``probe_rows`` may launch no more often than that, the
+plain closure loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
-12, 15, 16 and 17 (hash), once per insert of a batch, merge and grow of
-a hash table (one routed launch for all shards), ``hash_lookup`` in
-phases 10 and 15 (``--mirror device``), once per lookup wave, and none
-of the sorted store's kernels in those hash runs;
+12, 15, 16, 17 (hash) and 18 (hash), once per insert of a batch, merge
+and grow of a hash table and device group (one routed launch for all
+shards of a group), ``hash_lookup`` in phases 10, 15 and 18 (``--mirror
+device``), once per lookup wave, and none of the sorted store's kernels
+in those hash runs;
 ``KmerTable.to_sorted_arrays`` (the host mirror) runs once in phases 9
 (plus once for the checkpoint), 11 (hash), 12 and 17 (hash, 1 shard),
 never under ``--mirror device``, and ``ShardedKmerTable``'s once in
-phases 15 (host mirror), 16 and 17 (hash, 4 shards). A
+phases 15 (host mirror), 16, 17 (hash, 4 shards) and 18 (load). A
 logged
 ``sPCR device-index build failed`` or ``reach warmup failed`` (the copied
 ``pcr/counts.py`` swallows those errors and falls back to the host
@@ -144,7 +160,11 @@ HASH_SHARDS = 4  # the owner-routed insert and lookup of phase 8
 LOOKUP_WAVE = 4096
 LOOKUP_MANY = 1 << 20
 CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
-N_SHARDS = "4"  # --n-shards of phases 14-17
+N_SHARDS = "4"  # --n-shards of phases 14-18
+DEVICES_ENV = "SHARKMER_TORCH_DEVICES"
+# phase 18: four shard groups in separate allocations on the one card,
+# the code path that four cards run
+ONE_CARD_GROUPS = ["cuda:0"] * int(N_SHARDS)
 # the chunked spectra's oracle: the JAX package's --chunks 10 outputs on
 # the first CHUNK_READS reads (one synthesis slab of tools/synth.py, so
 # the same reads in every file of that seed)
@@ -269,11 +289,7 @@ def byte_bound(n_bytes: int) -> dict:
             "bytes": n_bytes}
 
 
-def load_latency(torch) -> dict:
-    """ns per dependent load (``csrc/chase.cu``) along a random ring of
-    128 B lines: 2^15 lines (4 MB) walked once before the timed walks, so
-    they hit L2; 2^23 lines (1 GB, the closure table's keys and counts),
-    cold, so the loads go to DRAM. Median of three timed walks each."""
+def chase_lib():
     import ctypes
 
     from sharkmer_tpu_torch.kernels import build
@@ -282,6 +298,15 @@ def load_latency(torch) -> dict:
     lib.shk_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_void_p]
     lib.shk_chase.restype = ctypes.c_int
+    return lib
+
+
+def load_latency(torch) -> dict:
+    """ns per dependent load (``csrc/chase.cu``) along a random ring of
+    128 B lines: 2^15 lines (4 MB) walked once before the timed walks, so
+    they hit L2; 2^23 lines (1 GB, the closure table's keys and counts),
+    cold, so the loads go to DRAM. Median of three timed walks each."""
+    lib = chase_lib()
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -324,7 +349,7 @@ def chain_ms(latency: dict, levels: int) -> float:
 def bucket_bytes(torch, side, cand) -> int:
     """Bytes of one partition's LUT entries and bucket rows (8 B key and
     8 B count) that probing ``cand`` reads, each read once."""
-    cand = cand[cand != INT64_MAX]
+    cand = cand[cand != INT64_MAX].to(side.lut.device)
     if not cand.numel():
         return 0
     b = torch.unique(torch.clamp(cand >> side.shift, max=side.lut.shape[0] - 2))
@@ -393,11 +418,14 @@ def cut_table(torch, keys, counts, n_real: int, n_parts: int, k: int):
     return probe.PartTable(sidecars, bases)
 
 
-def shard_table(torch, keys, counts, n_real: int, n_shards: int, k: int):
+def shard_table(torch, keys, counts, n_real: int, n_shards: int, k: int,
+                devices=None):
     """The table's real rows split by owner (``kernels/hash.owner``) into
     ``n_shards`` sorted shards of one power-of-two width, sentinel tails,
     global row id ``shard * width + row``: the layout of
-    ``ShardedSortedStore`` and its owner-routed ``PartTable``."""
+    ``ShardedSortedStore`` and its owner-routed ``PartTable``. With
+    ``devices``, shard ``s`` lives on ``devices[s * D // S]`` and the
+    table launches on ``devices[0]``, as the store places them."""
     from sharkmer_tpu_torch.kernels import probe
     from sharkmer_tpu_torch.kernels.hash import owner
     from sharkmer_tpu_torch.ops import reach
@@ -407,13 +435,17 @@ def shard_table(torch, keys, counts, n_real: int, n_shards: int, k: int):
     width = 1 << (max(sizes) - 1).bit_length()
     sidecars = []
     for s, size in enumerate(sizes):
-        pk = torch.full((width,), INT64_MAX, dtype=torch.int64, device="cuda")
-        pc = torch.zeros(width, dtype=torch.int64, device="cuda")
+        home = "cuda" if devices is None else devices[
+            s * len(devices) // n_shards]
+        pk = torch.full((width,), INT64_MAX, dtype=torch.int64, device=home)
+        pc = torch.zeros(width, dtype=torch.int64, device=home)
         mine = own == s
-        pk[:size], pc[:size] = keys[:n_real][mine], counts[:n_real][mine]
+        pk[:size] = keys[:n_real][mine].to(home)
+        pc[:size] = counts[:n_real][mine].to(home)
         sidecars.append(reach.build_sidecar(pk, pc, k))
     return probe.PartTable(sidecars, [s * width for s in range(n_shards)],
-                           by_owner=True)
+                           by_owner=True,
+                           device=None if devices is None else devices[0])
 
 
 def closure_bytes(torch, table, c0, pre_ids, log_sorted, state, boundary,
@@ -614,6 +646,68 @@ def closure_calls(lines) -> int:
     return 0
 
 
+def instrument(torch, kernels):
+    """The context of ``drive_main_path``: a handler that keeps the CLI's
+    stage-wall and sPCR-phase lines, and wrappers that count the host
+    mirror builds, the closures that ran the torch loop, the hash
+    tables' inserts, merges, grows and lookup waves."""
+    from sharkmer_tpu_torch.kernels import closure
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+    from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+    from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
+
+    run_log = _RunLog()
+    logging.getLogger().addHandler(run_log)
+    ctx = types.SimpleNamespace(
+        torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
+        plain_closures=[], hash_exports=[], shard_exports=[],
+        hash_grows=[], lookup_waves=[], table_calls=[])
+
+    def counted(cls, name, event):
+        """Wrap ``cls.name`` to append ``event(args)`` per call."""
+        original = getattr(cls, name)
+
+        def wrapper(*args, **kwargs):
+            out = original(*args, **kwargs)
+            event(args)
+            return out
+
+        setattr(cls, name, wrapper)
+
+    counted(SortedKmerStore, "to_sorted_arrays",
+            lambda a: ctx.mirror_builds.append(1))
+    counted(ShardedSortedStore, "to_sorted_arrays",
+            lambda a: ctx.mirror_builds.append(1))
+    counted(KmerTable, "to_sorted_arrays",
+            lambda a: ctx.hash_exports.append(1))
+    counted(ShardedKmerTable, "to_sorted_arrays",
+            lambda a: ctx.shard_exports.append(1))
+
+    def batch_insert(args):
+        if len(args[1]):  # an empty batch launches nothing
+            ctx.table_calls.append("insert")
+
+    # each of these launches hash_insert once a device group (an insert
+    # of a non-empty batch, a merge, a grow: the sharded ones routed)
+    for cls in (KmerTable, ShardedKmerTable):
+        counted(cls, "insert_kmers", batch_insert)
+        counted(cls, "merge_from",
+                lambda a: ctx.table_calls.append("merge"))
+        counted(cls, "_grow", lambda a: (
+            ctx.table_calls.append("grow"),
+            ctx.hash_grows.append(getattr(a[0], "capacity", None) or
+                                  a[0].n_shards * a[0].local_capacity)))
+    counted(KmerTable, "lookup_directional",
+            lambda a: ctx.lookup_waves.append(len(a[1])))
+    counted(ShardedKmerTable, "lookup_directional",
+            lambda a: ctx.lookup_waves.append(len(a[1])))
+    # on the card the closure must never fall back to its torch loop
+    counted(closure, "closure_plain",
+            lambda a: ctx.plain_closures.append(1))
+    return ctx
+
+
 def drive_main_path(ctx, label: str, n_reads: int, extra=(),
                     fastq: bool = True, oracle: str | None = None):
     """One CLI run of the cnidaria cell at ``n_reads`` (from the FASTQ,
@@ -636,7 +730,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
             "--pcr-panel-file", PANEL, *extra]
     if fastq:
         argv += ["-m", str(n_reads), FASTQ]
-    torch.cuda.reset_peak_memory_stats()
+    for index in range(torch.cuda.device_count()):  # each card's own peak
+        torch.cuda.reset_peak_memory_stats(index)
     n_lines = len(run_log.lines)
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
                    ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
@@ -1032,8 +1127,8 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
             n_shards, cap = hk._geometry(slots)
 
             def launch(stream):
-                rc = lib.shk_hash_lookup(slots.data_ptr(), cap, n_shards,
-                                         q.data_ptr(), n_q, K,
+                rc = lib.shk_hash_lookup(slots.data_ptr(), None, cap,
+                                         n_shards, q.data_ptr(), n_q, K,
                                          out.data_ptr(), stream)
                 require(rc == 0, f"hash_lookup: launch failed ({rc})")
 
@@ -1060,6 +1155,332 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
     return {"hash_insert": insert, "hash_lookup": lookup}
 
 
+def peer_latency(torch, launch, other) -> float:
+    """ns per dependent load of a kernel on ``launch`` along a cold ring
+    of 2^23 128 B lines (1 GB) on the card ``other``: each load crosses
+    to the peer's DRAM (over NVLink on an H100 host). Median of three
+    timed walks, as ``load_latency``'s DRAM walk."""
+    from sharkmer_tpu_torch.kernels import peer
+
+    peer.check_readable(launch, other)
+    lib = chase_lib()
+    n_lines, steps = 1 << 23, 1 << 16
+    gen = torch.Generator(device=other).manual_seed(5)
+    ring = 32 * torch.randperm(n_lines, device=other, generator=gen)
+    nxt = torch.zeros(32 * n_lines, dtype=torch.int32, device=other)
+    nxt[ring] = torch.roll(ring, -1).to(torch.int32)
+    start = int(ring[0])
+    del ring
+    torch.cuda.synchronize(other)
+    out = torch.empty(1, dtype=torch.int32, device=launch)
+    times = []
+    with torch.cuda.device(launch):
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def walk():
+            rc = lib.shk_chase(nxt.data_ptr(), start, steps, out.data_ptr(),
+                               stream)
+            require(rc == 0, f"chase: CUDA launch failed (cudaError {rc})")
+
+        for _ in range(3):
+            times.append(median_ms(torch, walk, 1))
+            start = int(out[0])  # a fresh stretch of the ring each time
+    del nxt
+    torch.cuda.empty_cache()
+    return statistics.median(times) * 1e6 / steps
+
+
+def groups_phase(torch, np, card: str, latency: dict, devices,
+                 tag: str) -> dict:
+    """Phase 18's kernels on HASH_SHARDS owner shards placed on
+    ``devices`` (``SHARKMER_TORCH_DEVICES``: shard ``s`` on ``devices[s *
+    D // S]``, one group of contiguous shards a device, each group in its
+    own allocation):
+
+    * phase 8's batch into the groups as one windowed ``hash_insert`` a
+      group (the batch copied to every group's device first, as
+      ``ShardedKmerTable`` does), held shard by shard to the windowed
+      ``insert_plain`` and to the one-launch routed insert into one
+      ``[S, cap, 2]`` table on ``devices[0]``; the D launches timed
+      together and one by one, beside the one launch;
+    * ``hash_lookup`` through the groups' pointer table (one launch on
+      ``devices[0]``) on a LOOKUP_WAVE wave and LOOKUP_MANY queries,
+      against ``lookup_plain`` over the groups and the one-launch table;
+      the wave also as the kernel alone (``graph_ms``);
+    * phase 13's closures and warm-start probe over the closure table's
+      owner shards on ``devices``, launched on ``devices[0]``.
+
+    Times are CUDA events on ``devices[0]`` where every group is there,
+    else the host clock around work that ends in a synchronize of every
+    device. Returns the records, keyed by ``tag``."""
+    from sharkmer_tpu_torch.device import shard_groups, synchronize
+    from sharkmer_tpu_torch.kernels import hash as hk
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    launch = devices[0]
+    one_card = len(set(devices)) == 1
+
+    def timed_ms(fn, reps, reset=None):
+        if one_card:
+            with torch.cuda.device(launch):
+                return median_ms(torch, fn, reps, reset)
+        times = []
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            synchronize(*devices)
+            start = time.perf_counter()
+            fn()
+            synchronize(*devices)
+            times.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(times)
+
+    kmers, n_valid = first_batch_kmers(torch, np)
+    kmers = kmers.to(launch)
+    n, S, cap = kmers.numel(), HASH_SHARDS, HASH_CAP // HASH_SHARDS
+    groups = shard_groups(S, len(devices))
+    batches = [kmers.to(dev) for dev in devices]
+
+    def fresh():
+        return ([hk.new_slots((hi - lo, cap), dev)
+                 for (lo, hi), dev in zip(groups, devices)],
+                [torch.zeros(hi - lo, dtype=torch.int64, device=dev)
+                 for (lo, hi), dev in zip(groups, devices)])
+
+    def reset(table):
+        for slots, claims in zip(*table):
+            slots[..., 0].fill_(INT64_MAX)
+            slots[..., 1].zero_()
+            claims.zero_()
+
+    def insert(table, fn, only=None):
+        for d, ((lo, _), slots, claims, batch) in enumerate(
+                zip(groups, *table, batches)):
+            if only is None or d == only:
+                fn(slots, claims, batch, shard_lo=lo, n_shards=S)
+
+    kern, plain = fresh(), fresh()
+    one = ([hk.new_slots((S, cap), launch)],
+           [torch.zeros(S, dtype=torch.int64, device=launch)])
+    insert(kern, hk.hash_insert)
+    insert(plain, hk.insert_plain)
+    hk.hash_insert(one[0][0], one[1][0], kmers)
+    synchronize(*devices)
+    what = (f"{HASH_READS} reads' {n} k-mers ({n_valid} valid) into {S} "
+            f"shards of {cap} slots in {len(groups)} groups on "
+            f"{','.join(map(str, devices))}")
+    err, distinct = 0, 0
+    # the bytes each card must move: the input batch read once where it
+    # lies, and each slot sector that holds a key read and written once
+    card_bytes = {launch: 8 * n}
+    for d, ((lo, hi), dev) in enumerate(zip(groups, devices)):
+        got = (kern[0][d], kern[1][d])
+        e, rows = same_rows(torch, "hash_insert", got,
+                            (plain[0][d], plain[1][d]), f"{what}, group {d}")
+        same_rows(torch, "hash_insert", got,
+                  (one[0][0][lo:hi].to(dev), one[1][0][lo:hi].to(dev)),
+                  f"{what}, group {d} against the one-launch table")
+        err, distinct = max(err, e), distinct + rows
+        card_bytes[dev] = card_bytes.get(dev, 0) + 64 * touched_sectors(
+            torch, kern[0][d])["slot_sectors"]
+    total = sum(int(hk.as_u32(hk.slot_counts(g)).sum()) for g in kern[0])
+    require(total == n_valid, f"hash_insert: n_total {total} != {n_valid}")
+    one_sectors = touched_sectors(torch, one[0][0])["slot_sectors"]
+    plain_ms = timed_ms(lambda: insert(plain, hk.insert_plain), 1,
+                        lambda: reset(plain))
+    one_ms = timed_ms(lambda: hk.hash_insert(one[0][0], one[1][0], kmers),
+                      10, lambda: reset(one))
+    ms = timed_ms(lambda: insert(kern, hk.hash_insert), 10,
+                  lambda: reset(kern))
+    each = [timed_ms(lambda d=d: insert(kern, hk.hash_insert, d), 10,
+                     lambda: reset(kern)) for d in range(len(groups))]
+    ms = (ms + timed_ms(lambda: insert(kern, hk.hash_insert), 10,
+                        lambda: reset(kern))) / 2
+    one_ms = (one_ms + timed_ms(
+        lambda: hk.hash_insert(one[0][0], one[1][0], kmers), 10,
+        lambda: reset(one))) / 2
+    plain_ms = (plain_ms + timed_ms(lambda: insert(plain, hk.insert_plain), 1,
+                                    lambda: reset(plain))) / 2
+    print(f"hash_insert: exact on {what}: {distinct} keys, claim counters "
+          f"{[c.tolist() for c in kern[1]]}; median {ms:.4f} ms for "
+          f"{len(groups)} windowed launches "
+          f"({', '.join(f'{t:.4f}' for t in each)} ms each) vs "
+          f"{one_ms:.4f} ms one routed launch vs {plain_ms:.4f} ms plain "
+          f"on {card}", flush=True)
+    # the bound: the busiest card's bytes (the cards' memories work in
+    # parallel). Each windowed launch reads the whole batch: the D - 1
+    # reads past the first are the design's overhead, kept apart as
+    # window_reads_ms (their bytes at the memory rate)
+    insert_rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                  "bound_ms": max(card_bytes.values()) / HBM_BYTES_PER_MS,
+                  "window_reads_ms": 8 * n * (len(groups) - 1)
+                  / HBM_BYTES_PER_MS,
+                  "launch_ms": each, "one_launch_ms": one_ms,
+                  "one_launch_bound_ms": (8 * n + 64 * one_sectors)
+                  / HBM_BYTES_PER_MS, "launches_a_batch": len(groups)}
+    del plain
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=launch).manual_seed(6)
+    valid = kmers[kmers != INT64_MAX]
+    pointers = hk.slot_pointers(kern[0], launch)
+    lib = hk._lib()
+    lookup_rec = {}
+    for n_q in (LOOKUP_WAVE, LOOKUP_MANY):
+        pick = valid[torch.randint(0, valid.numel(), (n_q // 2,),
+                                   device=launch, generator=gen)]
+        pick[::2] = revcomp(pick[::2], K)
+        absent = torch.randint(0, 1 << (2 * K), (n_q - n_q // 2,),
+                               device=launch, generator=gen)
+        q = torch.cat([pick, absent])
+        with torch.cuda.device(launch):
+            result = compare(
+                torch, "hash_lookup",
+                lambda: hk.hash_lookup(kern[0], q, K, pointers),
+                lambda: hk.lookup_plain(kern[0], q, K), 20, card,
+                f"{n_q} directional queries, half random, through the "
+                f"pointer table of {S} shards on "
+                f"{','.join(map(str, devices))}")
+        got = hk.hash_lookup(kern[0], q, K, pointers)
+        require(torch.equal(got, hk.hash_lookup(one[0][0], q, K)),
+                "hash_lookup: the pointer table differs from the one-launch "
+                "table")
+        found = int((got != 0).sum())
+        require(found >= n_q // 2, f"hash_lookup: {found} of {n_q} found")
+        size = "" if n_q == LOOKUP_WAVE else "many_"
+        lookup_rec.update({
+            f"{size}ms": result["ms"], f"{size}plain_ms": result["plain_ms"],
+            f"{size}max_abs_err": result["max_abs_err"],
+            # query in, count out, a slot sector a query, the pointer table
+            f"{size}bound_ms": (12 * n_q + 32 * n_q + 8 * S)
+            / HBM_BYTES_PER_MS})
+        if n_q != LOOKUP_WAVE:
+            continue
+        out = torch.empty(n_q, dtype=torch.int32, device=launch)
+
+        def launch_wave(stream):
+            rc = lib.shk_hash_lookup(None, pointers.data_ptr(), cap, S,
+                                     q.data_ptr(), n_q, K, out.data_ptr(),
+                                     stream)
+            require(rc == 0, f"hash_lookup: launch failed ({rc})")
+
+        with torch.cuda.device(launch):
+            alone = graph_ms(torch, launch_wave)
+        require(torch.equal(out, got), "hash_lookup: the graph's launches "
+                "differ")
+        lookup_rec["kernel_ms"] = alone
+        print(f"hash_lookup: {n_q}-query wave through the pointer table: "
+              f"kernel alone {alone:.5f} ms (a CUDA graph of back-to-back "
+              f"launches) on {card}", flush=True)
+    lookup_rec["max_abs_err"] = max(lookup_rec["max_abs_err"],
+                                    lookup_rec["many_max_abs_err"])
+    del kern, one, batches, kmers, valid, pointers
+    torch.cuda.empty_cache()
+
+    closures = closure_phase(torch, np, card, latency, {
+        tag: lambda keys, counts, n_real: shard_table(
+            torch, keys, counts, n_real, CLOSURE_SHARDS, K, devices)})
+    return {f"hash_insert, {tag}": insert_rec,
+            f"hash_lookup, {tag}": lookup_rec, **closures}
+
+
+def check_hash_run(runs, label: str, n_groups: int) -> None:
+    """A hash run touches none of the sorted store's kernels, and
+    launches hash_insert once per insert, merge and grow of a hash table
+    and device group (one routed launch on the shards of a group, not one
+    a shard) and hash_lookup once per lookup wave (one launch, through
+    the groups' pointer table where there are groups)."""
+    counts = runs[label][0]
+    for name in ("run_ends", "run_starts", "probe_rows", "stitch_rows",
+                 "reach_closure"):
+        require(counts[name] == 0, f"{name} was launched in the {label} run")
+    require(counts["hash_insert"] == n_groups * counts["table_calls"] >= 1,
+            f"{label}: {counts['hash_insert']} hash_insert launches for "
+            f"{counts['table_calls']} inserts, merges and grows of "
+            f"{n_groups} group(s)")
+    require(counts["hash_lookup"] == counts["lookup_waves"],
+            f"{label}: {counts['hash_lookup']} hash_lookup launches for "
+            f"{counts['lookup_waves']} lookup waves")
+
+
+def check_closure_run(runs, label: str) -> None:
+    """A reach run launches reach_closure at least once a closure call,
+    and probe_rows (the warm starts) no more often than that."""
+    counts = runs[label][0]
+    calls = counts["closure_calls"]
+    require(counts["probe_rows"] <= calls <= counts["reach_closure"]
+            and counts["reach_closure"] >= 1,
+            f"{label}: {counts['probe_rows']} probe_rows and "
+            f"{counts['reach_closure']} reach_closure launches for {calls} "
+            f"closure calls")
+
+
+def check_group_runs(runs, tag: str, n_groups: int) -> None:
+    """Phase 18's runs of one placement (``placement_phase``): the sorted
+    run launches run_starts and the closures; the hash runs as
+    ``check_hash_run`` with ``n_groups`` launches an insert, a lookup a
+    wave (``--mirror device``: no host mirror), the load into a sharded
+    hash table exported once for its host mirror."""
+    sorted_run = runs[f"{tag}_sorted"][0]
+    require(sorted_run["run_starts"] >= 1 and not sorted_run["hash_insert"],
+            f"{tag}_sorted: run_starts {sorted_run['run_starts']}, "
+            f"hash_insert {sorted_run['hash_insert']}")
+    check_closure_run(runs, f"{tag}_sorted")
+    device_run = runs[f"{tag}_hash_device"][0]
+    require(device_run["hash_lookup"] >= 1 and not (
+        device_run["hash_exports"] or device_run["shard_exports"]),
+        f"{tag}_hash_device: {device_run['hash_lookup']} lookups, host "
+        f"mirror exports {device_run['shard_exports']}")
+    check_hash_run(runs, f"{tag}_hash_device", n_groups)
+    if f"{tag}_load" in runs:
+        check_hash_run(runs, f"{tag}_load", n_groups)
+        load = runs[f"{tag}_load"][0]
+        require((load["hash_exports"], load["shard_exports"]) == (0, 1),
+                f"{tag}_load: exports {load['hash_exports']} / "
+                f"{load['shard_exports']}, not 0 / 1")
+
+
+def peer_latencies(torch, cards, card: str, latency: dict) -> dict:
+    """``peer_latency`` from ``cards[0]`` into each other card, printed
+    beside the card's own DRAM latency."""
+    peer_ns = {other: peer_latency(torch, cards[0], other)
+               for other in cards[1:]}
+    print(f"dependent-load latency from {cards[0]} into a peer's DRAM: "
+          f"{peer_ns} ns, against {latency['dram_ns']:.1f} ns from its own "
+          f"DRAM on {card}", flush=True)
+    return peer_ns
+
+
+def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
+                    record: dict, runs: dict, load: bool = True) -> str:
+    """Phase 18 on one placement, ``devices`` (names, one a shard group):
+    ``groups_phase``, then the 1M cell with ``--n-shards`` N_SHARDS under
+    ``SHARKMER_TORCH_DEVICES``: sorted, hash ``--mirror device`` and,
+    with ``load``, ``--load-table`` of phase 9's checkpoint (runs
+    ``<tag>_sorted``, ``<tag>_hash_device``, ``<tag>_load``). Returns the
+    records' label."""
+    torch = ctx.torch
+    label = f"{len(devices)} groups on {len(set(devices))} card(s)"
+    record.update(groups_phase(torch, np, card, latency,
+                               [torch.device(d) for d in devices], label))
+    os.environ[DEVICES_ENV] = ",".join(devices)
+    try:
+        runs[f"{tag}_sorted"] = drive_main_path(
+            ctx, f"{tag}_sorted", 1_000_000, ("--n-shards", N_SHARDS))
+        runs[f"{tag}_hash_device"] = drive_main_path(
+            ctx, f"{tag}_hash_device", 1_000_000,
+            ("--n-shards", N_SHARDS, "--backend", "hash", "--mirror",
+             "device"))
+        if load:
+            runs[f"{tag}_load"] = drive_main_path(
+                ctx, f"{tag}_load", 1_000_000,
+                ("--load-table", CHECKPOINT, "--n-shards", N_SHARDS),
+                fastq=False)
+    finally:
+        del os.environ[DEVICES_ENV]
+    return label
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "sharkmer_tpu_torch")),
             f"no sharkmer_tpu_torch package beside {__file__}")
@@ -1069,13 +1490,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from sharkmer_tpu_torch.device import shard_devices
     from sharkmer_tpu_torch.io import native
     from sharkmer_tpu_torch.kernels import build, closure, probe, run_scan, stitch
     from sharkmer_tpu_torch.kernels import hash as hash_kernels
-    from sharkmer_tpu_torch.ops.hashtable import KmerTable
-    from sharkmer_tpu_torch.ops.sorted_store import SortedKmerStore
-    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
-    from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 
     t_start = time.monotonic()
     phase("1. card")
@@ -1097,7 +1515,7 @@ def main() -> int:
         phase("2. build")
         start = time.monotonic()
         sources = sorted({os.path.basename(src)[:-3]
-                          for src, _ in KERNELS.values()} | {"chase"})
+                          for src, _ in KERNELS.values()} | {"chase", "peer"})
         build.build_all(sources)
         print(f"nvcc build and load of {', '.join(sources)}: "
               f"{time.monotonic() - start:.2f} s")
@@ -1130,55 +1548,11 @@ def main() -> int:
         print(f"FASTQ {os.path.relpath(FASTQ, HERE)} ready "
               f"({time.monotonic() - start:.2f} s waited)", flush=True)
         os.makedirs(OUT_DIR, exist_ok=True)
-        run_log = _RunLog()
-        logging.getLogger().addHandler(run_log)
-        ctx = types.SimpleNamespace(
-            torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
-            plain_closures=[], hash_exports=[], shard_exports=[],
-            hash_grows=[], lookup_waves=[], table_calls=[])
-
-        def counted(cls, name, event):
-            """Wrap ``cls.name`` to append ``event(args)`` per call."""
-            original = getattr(cls, name)
-
-            def wrapper(*args, **kwargs):
-                out = original(*args, **kwargs)
-                event(args)
-                return out
-
-            setattr(cls, name, wrapper)
-
-        counted(SortedKmerStore, "to_sorted_arrays",
-                lambda a: ctx.mirror_builds.append(1))
-        counted(ShardedSortedStore, "to_sorted_arrays",
-                lambda a: ctx.mirror_builds.append(1))
-        counted(KmerTable, "to_sorted_arrays",
-                lambda a: ctx.hash_exports.append(1))
-        counted(ShardedKmerTable, "to_sorted_arrays",
-                lambda a: ctx.shard_exports.append(1))
-        def batch_insert(args):
-            if len(args[1]):  # an empty batch launches nothing
-                ctx.table_calls.append("insert")
-
-        # each of these launches hash_insert once (an insert of a
-        # non-empty batch, a merge, a grow: the sharded ones routed)
-        for cls in (KmerTable, ShardedKmerTable):
-            counted(cls, "insert_kmers", batch_insert)
-            counted(cls, "merge_from",
-                    lambda a: ctx.table_calls.append("merge"))
-            counted(cls, "_grow", lambda a: (
-                ctx.table_calls.append("grow"),
-                ctx.hash_grows.append(a[0].slots.shape[:-1].numel())))
-        counted(KmerTable, "lookup_directional",
-                lambda a: ctx.lookup_waves.append(len(a[1])))
-        counted(ShardedKmerTable, "lookup_directional",
-                lambda a: ctx.lookup_waves.append(len(a[1])))
-        # on the card the closure must never fall back to its torch loop
-        counted(closure, "closure_plain",
-                lambda a: ctx.plain_closures.append(1))
+        ctx = instrument(torch, kernels)
         os.environ.pop("SHARKMER_MAX_AGG", None)
         os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
         runs = {"default": drive_main_path(ctx, "default", 1_000_000)}
+        group_labels = {}  # phase 18's placements: tag -> record label
 
         phase("5. main path again with SHARKMER_MAX_AGG=2^24")
         os.environ["SHARKMER_MAX_AGG"] = str(1 << 24)
@@ -1275,6 +1649,25 @@ def main() -> int:
                     ("--chunks", "10", "--backend", backend,
                      "--n-shards", shards),
                     oracle=CHUNK_ORACLE)
+
+        phase(f"18. shard groups: {DEVICES_ENV}={','.join(ONE_CARD_GROUPS)}")
+        n_cards = torch.cuda.device_count()
+        cards = [f"cuda:{i}" for i in range(min(int(N_SHARDS), n_cards))]
+        placements = {"groups": ONE_CARD_GROUPS}
+        if n_cards >= 2:
+            placements["cards"] = cards
+        for tag, devices in placements.items():
+            if tag == "cards":
+                phase(f"18b. shard groups on {len(cards)} cards: "
+                      f"{DEVICES_ENV}={','.join(cards)}")
+                record["peer_dram_ns"] = peer_latencies(torch, cards, card,
+                                                        latency)
+            group_labels[tag] = (placement_phase(ctx, np, card, latency, tag,
+                                                 devices, record, runs),
+                                 len(devices))
+        if "cards" not in placements:
+            print("phase 18: the cross-card part did not run: only one card "
+                  "is visible", flush=True)
     finally:
         if synth is not None:
             synth.kill()
@@ -1297,24 +1690,15 @@ def main() -> int:
         for label in labels:
             require(runs[label][0][name] >= 1,
                     f"{name} was not launched in the {label} run")
-    # the hash runs never touch the sorted store's kernels, and launch
-    # hash_insert once per insert, merge and grow of a hash table (one
-    # routed launch on the shards, not one a shard) and hash_lookup once
-    # per lookup wave
+    # phases 14-17 place their N_SHARDS shards by default: one group on
+    # one card, a group a card on the first min(N_SHARDS, cards) cards
+    default_groups = len(shard_devices(int(N_SHARDS), "cuda"))
     for label in ("hash", "hash_device", "load_hash", "hash_4M",
-                  "shards_hash", "shards_hash_device", "shards_load",
-                  *chunked_hash):
-        counts = runs[label][0]
-        for name in ("run_ends", "run_starts", "probe_rows", "stitch_rows",
-                     "reach_closure"):
-            require(counts[name] == 0,
-                    f"{name} was launched in the {label} run")
-        require(counts["hash_insert"] == counts["table_calls"],
-                f"{label}: {counts['hash_insert']} hash_insert launches for "
-                f"{counts['table_calls']} inserts, merges and grows")
-        require(counts["hash_lookup"] == counts["lookup_waves"],
-                f"{label}: {counts['hash_lookup']} hash_lookup launches for "
-                f"{counts['lookup_waves']} lookup waves")
+                  "chunks_hash_1"):
+        check_hash_run(runs, label, 1)
+    for label in ("shards_hash", "shards_hash_device", "shards_load",
+                  f"chunks_hash_{N_SHARDS}"):
+        check_hash_run(runs, label, default_groups)
     # KmerTable.to_sorted_arrays (ShardedKmerTable's with --n-shards): the
     # host mirror once under --mirror auto (phase 9 also exports the
     # checkpoint), never under device; --load-table with --n-shards loads
@@ -1330,12 +1714,9 @@ def main() -> int:
                 f"{label}: KmerTable and ShardedKmerTable.to_sorted_arrays "
                 f"ran {got} times, not {(exports, shard_exports)}")
     for label in required["reach_closure"]:
-        counts = runs[label][0]
-        calls = counts["closure_calls"]
-        require(counts["probe_rows"] <= calls <= counts["reach_closure"],
-                f"{label}: {counts['probe_rows']} probe_rows and "
-                f"{counts['reach_closure']} reach_closure launches for "
-                f"{calls} closure calls")
+        check_closure_run(runs, label)
+    for tag, (_, n_groups) in group_labels.items():
+        check_group_runs(runs, tag, n_groups)
 
     parts = f"{CLOSURE_PARTS} partitions"
     shards = f"{CLOSURE_SHARDS} shards"
@@ -1369,6 +1750,29 @@ def main() -> int:
                     "max_abs_err", "n_vis", "iters")})
         else:
             rec = record[name]
+        # phase 18: the same kernel on the shards of each placement
+        for tag, (label, _) in group_labels.items():
+            if name in ("hash_insert", "hash_lookup"):
+                rec.update({f"{tag}_{key}": value for key, value in
+                            record[f"{name}, {label}"].items()})
+            elif name == "probe_rows":
+                rec.update({f"{tag}_{key}": record[f"probe_rows, {label}"][key]
+                            for key in ("ms", "plain_ms", "bound_ms",
+                                        "max_abs_err")})
+            elif name == "reach_closure":
+                for call in ("narrow", "wide", "pre"):
+                    owned = record[f"{call}, {label}"]
+                    rec.update({f"{tag}_{call}_{key}": owned[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "latency_bound_ms",
+                        "max_abs_err", "n_vis", "iters")})
+                    if tag == "cards":
+                        # every level's probe chain ending in a peer's DRAM
+                        peer_ns = max(record["peer_dram_ns"].values())
+                        rec[f"cards_{call}_remote_latency_bound_ms"] = (
+                            owned["latency_levels"]
+                            * (2 * latency["l2_ns"] + peer_ns) / 1e6)
+                if tag == "cards":
+                    rec["peer_dram_ns"] = record["peer_dram_ns"]
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -4,10 +4,10 @@
 // The table is one array of 16 B slots, `cap` of them a table (a power of
 // two): the int64 key at byte 0 (INT64_MAX, the port's SENTINEL, for an empty
 // slot), the uint32 count at byte 8, and 4 B of zero padding. A sharded table
-// is S such tables in one [S, cap] allocation, and each key lives in the shard
-// owner(key, S) (mix64.cuh: the high bits of mix64). A key's home slot is
-// mix64(key) & (cap - 1) in its shard, the SplitMix64 finalizer's low bits;
-// collisions probe linearly. A slot goes from empty to a key once and never
+// is S such tables, in one [S, cap] allocation or in groups of them, and each
+// key lives in the shard owner(key, S) (mix64.cuh: the high bits of mix64).
+// A key's home slot is mix64(key) & (cap - 1) in its shard, the SplitMix64
+// finalizer's low bits; collisions probe linearly. A slot goes from empty to a key once and never
 // changes again.
 //
 // They replace the XLA programs of sharkmer_tpu/ops/hashtable.py (no Pallas
@@ -33,7 +33,16 @@
 //   * owner routing inside the kernel: each entry's shard comes from the hash
 //     it needs for its home slot anyway, so a sharded insert or lookup reads
 //     its batch once, in one launch, where S launches on S masked copies
-//     read it S times;
+//     read it S times. Shards placed on several cards (parallel/) are D
+//     groups of contiguous shards: an insert launches once per group on the
+//     group's card with the group's window [shard_lo, shard_lo + n_local)
+//     and skips the entries another group owns (the JAX all-gather and
+//     mask, done from the hash the kernel computes anyway), so every write
+//     stays on its owner's card: remote atomics over NVLink would add to
+//     a kernel that atomics and dependent misses bound already. A lookup
+//     reads each shard through a per-shard pointer table, so one launch on
+//     the querying card answers every query from its owner's slots,
+//     wherever they live (JAX masks each shard and psums: D launches);
 //   * a claim counter: the slots an insert claims are counted into a device
 //     int64 per shard (per warp a __ballot_sync, then __match_any_sync on the
 //     shard and __popc; per block in shared memory; one global atomicAdd per
@@ -169,14 +178,14 @@ __device__ __forceinline__ bool insert_one(u64* table, u64 mask, int64_t cap,
 }
 
 __global__ void __launch_bounds__(kThreads)
-hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_shards,
-                   u64* __restrict__ claims, const u64* __restrict__ kmers,
+hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_local,
+                   int shard_lo, int n_shards, u64* __restrict__ claims,
+                   const u64* __restrict__ kmers,
                    const unsigned int* __restrict__ amounts,
                    const u64* __restrict__ src, int64_t n,
                    int* __restrict__ overflow) {
-  extern __shared__ u64 block_claims[];  // [max(n_shards, 1)]
-  const int n_counters = n_shards > 1 ? n_shards : 1;
-  for (int s = threadIdx.x; s < n_counters; s += kThreads) block_claims[s] = 0;
+  extern __shared__ u64 block_claims[];  // [n_local]
+  for (int s = threadIdx.x; s < n_local; s += kThreads) block_claims[s] = 0;
   __syncthreads();
 
   const u64 mask = static_cast<u64>(cap) - 1;
@@ -188,7 +197,7 @@ hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_shards,
        base < n; base += stride) {
     const int64_t i = base + lane;
     bool claimed = false;
-    int shard = 0;
+    int local = 0;
     if (i < n) {
       u64 key;
       unsigned int amount;
@@ -202,30 +211,34 @@ hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_shards,
       }
       if (key != kEmpty) {
         const u64 h = mix64(key);
-        shard = shard_of(h, n_shards);
-        claimed = insert_one(slots + 2 * static_cast<u64>(shard) * cap, mask,
-                             cap, h, key, amount, overflow);
+        local = shard_of(h, n_shards) - shard_lo;
+        // the window: an entry another group owns is that group's
+        if (local >= 0 && local < n_local) {
+          claimed = insert_one(slots + 2 * static_cast<u64>(local) * cap,
+                               mask, cap, h, key, amount, overflow);
+        }
       }
     }
     const unsigned int who = __ballot_sync(0xFFFFFFFFu, claimed);
     if (claimed) {
       const unsigned int peers =
-          n_shards > 1 ? __match_any_sync(who, shard) : who;
+          n_local > 1 ? __match_any_sync(who, local) : who;
       if (lane == __ffs(peers) - 1) {
-        atomicAdd(&block_claims[shard], static_cast<u64>(__popc(peers)));
+        atomicAdd(&block_claims[local], static_cast<u64>(__popc(peers)));
       }
     }
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < n_counters; s += kThreads) {
+  for (int s = threadIdx.x; s < n_local; s += kThreads) {
     if (block_claims[s] != 0) atomicAdd(&claims[s], block_claims[s]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-hash_lookup_kernel(const u64* __restrict__ slots, int64_t cap, int n_shards,
-                   const u64* __restrict__ queries, int64_t n, int k,
-                   unsigned int* __restrict__ out) {
+hash_lookup_kernel(const u64* __restrict__ slots,
+                   const int64_t* __restrict__ shard_slots, int64_t cap,
+                   int n_shards, const u64* __restrict__ queries, int64_t n,
+                   int k, unsigned int* __restrict__ out) {
   const u64 mask = static_cast<u64>(cap) - 1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -238,8 +251,13 @@ hash_lookup_kernel(const u64* __restrict__ slots, int64_t cap, int n_shards,
         key = rc < key ? rc : key;
       }
       const u64 h = mix64(key);
+      const int shard = shard_of(h, n_shards);
+      // the owner's slots: through the pointer table when the shards live
+      // in separate allocations (on this card or a peer), else in one
       const u64* table =
-          slots + 2 * static_cast<u64>(shard_of(h, n_shards)) * cap;
+          shard_slots != nullptr
+              ? reinterpret_cast<const u64*>(__ldg(shard_slots + shard))
+              : slots + 2 * static_cast<u64>(shard) * cap;
       u64 slot = h & mask;
       for (int64_t probes = 0; probes < cap; ++probes) {
         u64 cur, word;
@@ -265,36 +283,41 @@ int blocks_for(int64_t n) {
 
 extern "C" {
 
-// slots: n_shards (0 or 1: one table) tables of `cap` 16 B slots, [S, cap, 2]
-// int64, 16 B aligned; claims: [max(n_shards, 1)] int64, each shard's count of
-// claimed slots, incremented here. Entries: either kmers [n] int64 (SENTINEL
-// skipped) with amounts [n] uint32 or NULL (each entry adds 1), or src [n, 2]
-// int64, another table's slots (kmers and amounts NULL; empty slots skipped).
-// overflow: one int, set to 1 when an entry found no slot in `cap` probes.
-int shk_hash_insert(int64_t* slots, int64_t cap, int n_shards, int64_t* claims,
-                    const int64_t* kmers, const int* amounts,
-                    const int64_t* src, int64_t n, int* overflow,
-                    cudaStream_t stream) {
+// slots: n_local tables of `cap` 16 B slots, [n_local, cap, 2] int64, 16 B
+// aligned: shards [shard_lo, shard_lo + n_local) of an n_shards-way owner
+// route (shard_lo 0 and n_local == n_shards: the whole table); claims:
+// [n_local] int64, each local shard's count of claimed slots, incremented
+// here. Entries: either kmers [n] int64 (SENTINEL skipped) with amounts [n]
+// uint32 or NULL (each entry adds 1), or src [n, 2] int64, another table's
+// slots (kmers and amounts NULL; empty slots skipped). Entries owned by a
+// shard outside the window are skipped. overflow: one int, set to 1 when an
+// entry found no slot in `cap` probes.
+int shk_hash_insert(int64_t* slots, int64_t cap, int n_local, int shard_lo,
+                    int n_shards, int64_t* claims, const int64_t* kmers,
+                    const int* amounts, const int64_t* src, int64_t n,
+                    int* overflow, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int n_counters = n_shards > 1 ? n_shards : 1;
-  hash_insert_kernel<<<blocks_for(n), kThreads, n_counters * sizeof(u64),
+  hash_insert_kernel<<<blocks_for(n), kThreads, n_local * sizeof(u64),
                        stream>>>(
-      reinterpret_cast<u64*>(slots), cap, n_shards,
+      reinterpret_cast<u64*>(slots), cap, n_local, shard_lo, n_shards,
       reinterpret_cast<u64*>(claims), reinterpret_cast<const u64*>(kmers),
       reinterpret_cast<const unsigned int*>(amounts),
       reinterpret_cast<const u64*>(src), n, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 
-// queries [n] int64 (SENTINEL answers 0), each answered by its owner shard;
-// k > 0 canonicalizes each query first (directional lookup); out [n] uint32
-// counts, 0 when absent.
-int shk_hash_lookup(const int64_t* slots, int64_t cap, int n_shards,
-                    const int64_t* queries, int64_t n, int k, int* out,
-                    cudaStream_t stream) {
+// queries [n] int64 (SENTINEL answers 0), each answered by its owner shard
+// of n_shards; k > 0 canonicalizes each query first (directional lookup);
+// out [n] uint32 counts, 0 when absent. The shards are either one
+// [n_shards, cap, 2] allocation at `slots` (shard_slots NULL), or anywhere
+// this card can read: shard_slots [n_shards] int64 on this card holds the
+// address of each shard's slot 0 (slots unused).
+int shk_hash_lookup(const int64_t* slots, const int64_t* shard_slots,
+                    int64_t cap, int n_shards, const int64_t* queries,
+                    int64_t n, int k, int* out, cudaStream_t stream) {
   if (n <= 0) return 0;
   hash_lookup_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      reinterpret_cast<const u64*>(slots), cap, n_shards,
+      reinterpret_cast<const u64*>(slots), shard_slots, cap, n_shards,
       reinterpret_cast<const u64*>(queries), n, k,
       reinterpret_cast<unsigned int*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -3,8 +3,9 @@
 Torch port of ``sharkmer_tpu.engine`` on one device (``device``), with
 the sorted backend (``ops/sorted_store.py``) or the hash backend
 (``ops/hashtable.py``), each also sharded by owner over ``n_shards``
-logical shards on that device (``parallel/``): the same round-robin
-chunk routing, per-chunk tables, in-order consolidation and
+shards placed on a list of devices (``devices``, by default
+``device.shard_devices``; ``parallel/``): the same round-robin chunk
+routing, per-chunk tables, in-order consolidation and
 count-conservation invariants.
 
 Pipeline parity with the reference
@@ -43,6 +44,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .device import indexed, shard_devices
 from .ops import encoding
 from .ops.hashtable import KmerTable
 from .ops.sorted_store import SortedKmerStore, _default_max_agg, _next_pow2
@@ -74,6 +76,9 @@ class CountingEngine:
     histo_max: int = 10000
     initial_capacity: int = 1 << 20  # the hash backend's first table
     n_shards: int = 1  # >1: the table sharded by owner (parallel/)
+    # the devices of the shards (n_shards > 1; default shard_devices), or
+    # [device]
+    devices: list | None = None
     backend: str = "sorted"  # "sorted" (sort/scan runs) | "hash" (probe table)
     table: object = field(init=False)  # a store of ops/ or parallel/
     stats: IngestStats = field(init=False)
@@ -86,16 +91,20 @@ class CountingEngine:
     def __post_init__(self):
         self.device = torch.device(self.device)
         if self.n_shards > 1:
-            # the JAX package shards over the devices that exist; the
-            # port's shards are logical, all on `device`, and its
-            # results do not depend on the shard count
+            # as the JAX package shards over the devices that exist; the
+            # results depend neither on the shard count nor on the
+            # placement
+            self.devices = [indexed(d) for d in self.devices or
+                            shard_devices(self.n_shards, self.device)]
             local = max(1 << 10, self.initial_capacity // self.n_shards)
             self.table = self._sharded_table(1 << (local - 1).bit_length())
-        elif self.backend == "hash":
-            self.table = KmerTable.create(self.k, self.initial_capacity,
-                                          self.device)
         else:
-            self.table = SortedKmerStore(self.k, self.device)
+            self.devices = [self.device]
+            if self.backend == "hash":
+                self.table = KmerTable.create(self.k, self.initial_capacity,
+                                              self.device)
+            else:
+                self.table = SortedKmerStore(self.k, self.device)
         self.stats = IngestStats()
         n = max(self.n_chunks, 1)
         self._chunk_tables = [None] * n
@@ -137,11 +146,10 @@ class CountingEngine:
 
     def _sharded_table(self, local_capacity: int):
         """An empty sharded table of the engine's backend."""
-        if self.backend == "hash":
-            return ShardedKmerTable.create(self.k, self.n_shards,
-                                           local_capacity, self.device)
-        return ShardedSortedStore.create(self.k, self.n_shards,
-                                         local_capacity, self.device)
+        cls = (ShardedKmerTable if self.backend == "hash"
+               else ShardedSortedStore)
+        return cls.create(self.k, self.n_shards, local_capacity,
+                          devices=self.devices)
 
     def _push_pending(self, c: int, item, n_reads: int) -> None:
         """Queue reads for chunk c; flush to its device table at the cap

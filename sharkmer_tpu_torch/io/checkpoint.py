@@ -13,7 +13,9 @@ package:
 Loading re-inserts the rows into a fresh table on ``device`` in slabs
 of 2^22, so the target's backend, capacity and shard count are free to
 differ from the saved one's. As in the JAX package, ``n_shards > 1``
-loads into a ``ShardedKmerTable`` whatever ``backend`` says.
+loads into a ``ShardedKmerTable`` whatever ``backend`` says, its shards
+on ``devices`` (by default ``device.shard_devices``). A sharded table
+saves its rows gathered from every device in one sorted array.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import logging
 
 import numpy as np
 
+from ..device import shard_devices
 from ..ops.encoding import KMER_SENTINEL
 from ..ops.hashtable import KmerTable
 from ..ops.sorted_store import SortedKmerStore
@@ -52,8 +55,10 @@ def save_table(path: str, table, stats=None) -> None:
 
 
 def load_table(path: str, device, n_shards: int = 1,
-               capacity: int | None = None, backend: str = "sorted"):
-    """Load a checkpoint into a fresh table of ``backend`` on ``device``.
+               capacity: int | None = None, backend: str = "sorted",
+               devices=None):
+    """Load a checkpoint into a fresh table of ``backend`` on ``device``
+    (with ``n_shards > 1``, its shards on ``devices``).
 
     Returns (table, stats_dict | None).
     """
@@ -75,7 +80,9 @@ def load_table(path: str, device, n_shards: int = 1,
 
     if n_shards > 1:
         local = 1 << max(10, (capacity // n_shards - 1).bit_length())
-        table = ShardedKmerTable.create(k, n_shards, local, device)
+        table = ShardedKmerTable.create(
+            k, n_shards, local,
+            devices=devices or shard_devices(n_shards, device))
     elif backend == "hash":
         table = KmerTable.create(k, capacity, device)
     else:

@@ -36,7 +36,8 @@ import torch
 from ..ops.histogram import revcomp
 from ..ops.keys import SENTINEL
 from . import build
-from .probe import INF32, PartTable, probe_window_plain
+from . import peer
+from .probe import INF32, PartTable, probe_part_plain
 
 _count_lock = threading.Lock()
 
@@ -57,8 +58,7 @@ def lookup_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
     part = table.route(cand) if table.n_shards else None
     for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
         mine = cand if part is None else torch.where(part == i, cand, SENTINEL)
-        row = probe_window_plain(sc.keys1d, sc.counts1d, sc.lut, sc.shift,
-                                 mine, min_count, probe_w)
+        row = probe_part_plain(sc, mine, min_count, probe_w)
         ids = torch.where(row >= 0, row + base, ids)
     return ids
 
@@ -260,8 +260,11 @@ def reach_closure(table: PartTable, c0, pre_ids, min_count: int, k: int,
         raise ValueError(f"reach_closure: roots on {c0.device}, table on "
                          f"{desc.device}")
     lib = _lib()
+    # scratch, frontier, log and outputs on the launching card; the
+    # partitions wherever the table's descriptors point
     out = closure_scratch(table.n_rows, depth, f_cap, c0.device)
     n_pre = 0 if pre_ids is None else pre_ids.shape[0]
+    peer.wait_for_peers(c0.device, table.part_devices)
     with torch.cuda.device(c0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_reach_closure(

@@ -11,7 +11,9 @@ that does either.
 
 The table is one int64 tensor of 16 B slots (``new_slots``): ``[cap, 2]``
 for one table, ``[S, cap, 2]`` for S owner shards (``cap`` a power of
-two). A slot holds the int64 key at byte 0 (``SENTINEL``, INT64_MAX, when
+two); shards placed on several devices are groups ``[n_d, cap, 2]`` of
+contiguous shards, one a device (``parallel/sharded_table.py``). A slot
+holds the int64 key at byte 0 (``SENTINEL``, INT64_MAX, when
 empty), the u32 count at byte 8 and 4 B of zeros; ``slot_keys`` and
 ``slot_counts`` are the int64 key view and the int32 count view (the
 u32's bit pattern), each with a 16 B stride. A key lives in shard
@@ -20,16 +22,21 @@ there is ``mix64(key) & (cap - 1)``, the low bits; collisions probe
 linearly. Counts add modulo 2^32, and a count at or above
 ``SAT_THRESHOLD`` takes no further add (the JAX table's freeze rule).
 An insert also counts the slots it claims into ``claims`` (int64, one
-per shard), so a table's occupancy is read without a sweep.
+per shard), so a table's occupancy is read without a sweep. An insert
+into one group of shards takes the group's window ``(shard_lo,
+n_shards)`` of the S-way route and skips the entries other groups own;
+a lookup over groups reads each shard through a pointer table
+(``slot_pointers``), one launch on the querying device.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the CPU
 path and the test oracle), on the same layout and the same routing:
 ``insert_plain`` is the JAX claim/probe round loop, ``lookup_plain`` the
 JAX probe loop. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/hash_table.cu`` on the current stream, or raises; a sharded call
-is one launch. ``<wrapper>.launches`` counts the wrapper's kernel
-launches. The kernel's claims race, so its slot layout may differ from
-the plain version's; the table's contents (each key and its count) and
+is one launch (an insert into groups: one a group).
+``<wrapper>.launches`` counts the wrapper's kernel launches. The
+kernel's claims race, so its slot layout may differ from the plain
+version's; the table's contents (each key and its count) and
 its claim counts do not.
 """
 
@@ -41,7 +48,7 @@ import torch
 
 from ..ops.histogram import revcomp
 from ..ops.keys import SENTINEL
-from . import build
+from . import build, peer
 
 SAT_THRESHOLD = 0xE000_0000
 U32 = 0xFFFF_FFFF
@@ -117,12 +124,24 @@ def _geometry(slots: torch.Tensor) -> tuple[int, int]:
     return slots.shape[0], slots.shape[1]
 
 
-def _homes(slots, keys):
-    """Each key's shard base (flat slot index of its shard's slot 0) and
-    home slot in its shard."""
-    n_shards, cap = _geometry(slots)
+def _window(entry: str, slots, shard_lo: int, n_shards) -> tuple[int, int]:
+    """(n_shards of the route, cap) of a table that holds the shards
+    ``[shard_lo, shard_lo + n_local)`` of it (by default all of them)."""
+    n_local, cap = _geometry(slots)
+    n_shards = n_local if n_shards is None else int(n_shards)
+    if not (0 <= shard_lo and shard_lo + n_local <= n_shards <= MAX_SHARDS):
+        raise ValueError(f"{entry}: shards [{shard_lo}, {shard_lo + n_local})"
+                         f" are not a window of {n_shards} (at most "
+                         f"{MAX_SHARDS})")
+    return n_shards, cap
+
+
+def _homes(keys, n_shards: int, shard_lo: int, n_local: int, cap: int):
+    """Each key's local shard in the window and home slot in its shard,
+    and whether the window owns it."""
     h = mix64(keys)
-    return _owner_of_hash(h, n_shards) * cap, h & (cap - 1)
+    local = _owner_of_hash(h, n_shards) - shard_lo
+    return local, h & (cap - 1), (local >= 0) & (local < n_local)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -154,20 +173,25 @@ def _entries(kmers, amounts):
     return kmers, as_u32(amounts)
 
 
-def insert_plain(slots, claims, kmers, amounts=None) -> None:
+def insert_plain(slots, claims, kmers, amounts=None, shard_lo: int = 0,
+                 n_shards=None) -> None:
     """The JAX claim/probe rounds, in place, each entry in its owner's
-    shard. A round: pending entries that find their key add; those at an
-    empty slot claim it (``index_put_``: one claimant of a slot wins;
+    shard; an entry whose owner lies outside the window ``[shard_lo,
+    shard_lo + n_local)`` of the ``n_shards``-way route is skipped (the
+    JAX mask). A round: pending entries that find their key add; those at
+    an empty slot claim it (``index_put_``: one claimant of a slot wins;
     each newly claimed slot counts in its shard's ``claims``) and,
     re-reading the slot, the winners add; the rest step one slot on in
     their shard."""
-    cap = _geometry(slots)[1]
+    n_shards, cap = _window("hash_insert", slots, shard_lo, n_shards)
     keys = slot_keys(slots).view(-1)
     counts = slot_counts(slots).view(-1)
     km, amt = _entries(kmers, amounts)
     live = km != SENTINEL
     km, amt = km[live], amt[live]
-    base, slot = _homes(slots, km)
+    local, slot, mine = _homes(km, n_shards, shard_lo, _geometry(slots)[0],
+                               cap)
+    km, amt, slot, base = km[mine], amt[mine], slot[mine], local[mine] * cap
     for _ in range(cap):
         if not km.numel():
             return
@@ -195,17 +219,40 @@ def insert_plain(slots, claims, kmers, amounts=None) -> None:
 def lookup_plain(slots, queries, k: int = 0) -> torch.Tensor:
     """The JAX probe loop, each query in its owner's shard: its count
     (int32 bit pattern), 0 when absent or SENTINEL; ``k > 0``
-    canonicalizes the queries first."""
-    cap = _geometry(slots)[1]
+    canonicalizes the queries first. ``slots`` is one table or a list of
+    groups of shards (``hash_lookup``): over groups, each group answers
+    the queries in its window on its device, and the answers (one
+    nonzero at most a query) are summed on the queries' device, the JAX
+    mask and psum."""
+    if isinstance(slots, torch.Tensor):
+        return _lookup_window(slots, queries, k)
+    n_shards = sum(g.shape[0] for g in slots)
+    out = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    lo = 0
+    for group in slots:
+        out += _lookup_window(group, queries.to(group.device), k, lo,
+                              n_shards).to(queries.device)
+        lo += group.shape[0]
+    return out
+
+
+def _lookup_window(slots, queries, k: int, shard_lo: int = 0,
+                   n_shards=None) -> torch.Tensor:
+    """``lookup_plain`` on one tensor of shards, the window ``[shard_lo,
+    shard_lo + n_local)`` of an ``n_shards``-way route: a query owned
+    outside it answers 0."""
+    n_shards, cap = _window("hash_lookup", slots, shard_lo, n_shards)
     keys = slot_keys(slots).reshape(-1)
     counts = slot_counts(slots).reshape(-1)
     if k:
         queries = torch.minimum(queries, revcomp(queries, k))
     out = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
     idx = torch.nonzero(queries != SENTINEL).reshape(-1)
+    local, slot, mine = _homes(queries[idx], n_shards, shard_lo,
+                               _geometry(slots)[0], cap)
+    idx = idx[mine]
     q = queries[idx]
-    base, slot = _homes(slots, q)
-    flat = base + slot
+    flat = local[mine] * cap + slot[mine]
     for _ in range(cap):
         if not idx.numel():
             break
@@ -226,9 +273,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("hash_table")
     if not getattr(lib, "_shk_bound", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.shk_hash_insert.argtypes = [p, i64, i32, p, p, p, p, i64, p, p]
+        lib.shk_hash_insert.argtypes = [p, i64, i32, i32, i32, p, p, p, p,
+                                        i64, p, p]
         lib.shk_hash_insert.restype = ctypes.c_int
-        lib.shk_hash_lookup.argtypes = [p, i64, i32, p, i64, i32, p, p]
+        lib.shk_hash_lookup.argtypes = [p, p, i64, i32, p, i64, i32, p, p]
         lib.shk_hash_lookup.restype = ctypes.c_int
         lib._shk_bound = True
     return lib
@@ -258,23 +306,36 @@ def _check_input(entry: str, slots, name: str, t, dtype, dim=1) -> None:
                          f"{slots.device}")
 
 
-def hash_insert(slots, claims, kmers, amounts=None) -> None:
+def slot_pointers(groups, device) -> torch.Tensor:
+    """The pointer table of ``hash_lookup`` over ``groups`` (tensors
+    ``[n_d, cap, 2]``, the shards in order): int64 ``[S]`` on ``device``,
+    the address of each shard's slot 0. Valid while the groups live."""
+    rows = [g.data_ptr() + j * g.shape[1] * 16
+            for g in groups for j in range(g.shape[0])]
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+def hash_insert(slots, claims, kmers, amounts=None, shard_lo: int = 0,
+                n_shards=None) -> None:
     """Add entries into the table ``slots`` in place, each in its owner's
     shard, and count the slots claimed into ``claims`` (int64, one per
     shard). The entries are ``kmers`` (int64 [n], SENTINEL skipped), each
     with its ``amounts`` entry (int32 u32 bit patterns) or 1; or another
     table's slots (int64 [n, 2], empty slots skipped: a rehash or a
-    merge)."""
+    merge). ``slots`` may hold only the shards ``[shard_lo, shard_lo +
+    n_local)`` of an ``n_shards``-way route (one group of a table on
+    several devices): entries owned outside that window are skipped."""
     if slots.device.type == "cpu":
-        insert_plain(slots, claims, kmers, amounts)
+        insert_plain(slots, claims, kmers, amounts, shard_lo, n_shards)
         return
     if slots.device.type != "cuda":
         raise ValueError(f"hash_insert: unsupported device {slots.device}")
-    n_shards, cap = _check_slots("hash_insert", slots)
+    n_local, cap = _check_slots("hash_insert", slots)
+    n_shards, _ = _window("hash_insert", slots, shard_lo, n_shards)
     _check_input("hash_insert", slots, "claims", claims, torch.int64)
-    if claims.shape[0] != n_shards:
+    if claims.shape[0] != n_local:
         raise ValueError(f"hash_insert: {claims.shape[0]} claim counters for "
-                         f"{n_shards} shards")
+                         f"{n_local} shards")
     src = None
     if kmers.dim() == 2:
         _check_input("hash_insert", slots, "source slots", kmers, torch.int64,
@@ -302,8 +363,9 @@ def hash_insert(slots, claims, kmers, amounts=None) -> None:
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_hash_insert(
-            slots.data_ptr(), cap, n_shards, claims.data_ptr(), ptr(kmers),
-            ptr(amounts), ptr(src), n, overflow.data_ptr(), stream)
+            slots.data_ptr(), cap, n_local, shard_lo, n_shards,
+            claims.data_ptr(), ptr(kmers), ptr(amounts), ptr(src), n,
+            overflow.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hash_insert: CUDA launch failed (cudaError {rc})")
     hash_insert.launches += 1
@@ -312,28 +374,57 @@ def hash_insert(slots, claims, kmers, amounts=None) -> None:
                            f"probes (table full)")
 
 
-def hash_lookup(slots, queries, k: int = 0) -> torch.Tensor:
+def hash_lookup(slots, queries, k: int = 0, pointers=None) -> torch.Tensor:
     """Counts (int32 u32 bit patterns) of int64 ``queries``, each in its
     owner's shard, 0 when absent or SENTINEL; ``k > 0`` looks up each
-    query's canonical form (directional lookup)."""
-    if slots.device.type == "cpu":
+    query's canonical form (directional lookup). ``slots`` is one table
+    (``[cap, 2]`` or ``[S, cap, 2]``), or a list of groups ``[n_d, cap,
+    2]`` whose shards in order are the S shards, each group on any device
+    the queries' device can read (``peer.check_readable``): one launch on
+    the queries' device reads each shard through ``pointers``
+    (``slot_pointers`` of the groups on that device; made here when not
+    given)."""
+    groups = [slots] if isinstance(slots, torch.Tensor) else list(slots)
+    if queries.device.type == "cpu":
+        for group in groups:
+            peer.check_readable(queries.device, group.device)
         return lookup_plain(slots, queries, k)
-    if slots.device.type != "cuda":
-        raise ValueError(f"hash_lookup: unsupported device {slots.device}")
-    n_shards, cap = _check_slots("hash_lookup", slots)
-    _check_input("hash_lookup", slots, "queries", queries, torch.int64)
+    if queries.device.type != "cuda":
+        raise ValueError(f"hash_lookup: unsupported device {queries.device}")
+    caps = set()
+    for group in groups:
+        caps.add(_check_slots("hash_lookup", group)[1])
+        peer.check_readable(queries.device, group.device)
+    if len(caps) != 1:
+        raise ValueError(f"hash_lookup: groups of capacities {sorted(caps)}")
+    n_shards, cap = sum(_geometry(g)[0] for g in groups), caps.pop()
+    if queries.dtype != torch.int64 or queries.dim() != 1 \
+            or not queries.is_contiguous():
+        raise ValueError("hash_lookup: queries must be contiguous 1-D int64")
     if not 0 <= k <= 31:
         raise ValueError(f"hash_lookup: k={k} out of range")
+    if isinstance(slots, torch.Tensor):
+        base, pointers = slots, None
+    else:
+        base = None
+        if pointers is None:
+            pointers = slot_pointers(groups, queries.device)
+        if (pointers.dtype != torch.int64 or pointers.device != queries.device
+                or tuple(pointers.shape) != (n_shards,)):
+            raise ValueError(f"hash_lookup: the pointer table must be int64 "
+                             f"[{n_shards}] on {queries.device}")
     n = queries.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=slots.device)
+    out = torch.empty(n, dtype=torch.int32, device=queries.device)
     if not n:
         return out
     lib = _lib()
-    with torch.cuda.device(slots.device):
+    peer.wait_for_peers(queries.device, [g.device for g in groups])
+    with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.shk_hash_lookup(slots.data_ptr(), cap, n_shards,
-                                 queries.data_ptr(), n, k, out.data_ptr(),
-                                 stream)
+        rc = lib.shk_hash_lookup(
+            None if base is None else base.data_ptr(),
+            None if pointers is None else pointers.data_ptr(), cap, n_shards,
+            queries.data_ptr(), n, k, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hash_lookup: CUDA launch failed (cudaError {rc})")
     hash_lookup.launches += 1

@@ -34,7 +34,8 @@ import threading
 import torch
 
 from ..ops.keys import SENTINEL
-from . import build
+from ..device import indexed
+from . import build, peer
 from .hash import owner
 
 BLOCK = 32  # rows per block of the plain version's window
@@ -69,7 +70,7 @@ def probe_window_plain(keys, counts, lut, shift: int, cand, min_count: int,
 def _check_part(sc) -> None:
     """A partition as the kernels read it: contiguous 1-D int64 keys and
     counts of one length and an int32 LUT of at least one bucket, all on
-    one device."""
+    the partition's device."""
     for name, t, dtype in (("keys", sc.keys1d, torch.int64),
                            ("counts", sc.counts1d, torch.int64),
                            ("lut", sc.lut, torch.int32)):
@@ -100,20 +101,29 @@ class PartTable:
     ids then do not follow key order). ``n_shards`` is the kernels' route
     argument (0 for key ranges). ``desc`` holds the kernels' partition
     descriptors (``csrc/probe_rows.cuh`` ``PartDesc``: six int64 words a
-    partition) on the table's device, and ``first_keys`` the partitions'
-    first keys there, both made once."""
+    partition) on the launching device ``device`` (by default the first
+    partition's), and ``first_keys`` the partitions' first keys there,
+    both made once. The partitions may lie in separate allocations and on
+    other cards (the shards of ``parallel/`` on a device list): each must
+    be readable from ``device`` (``peer.check_readable``: the same card,
+    or a peer with access enabled), and ``part_devices`` are the devices
+    whose streams a launch waits on."""
 
-    def __init__(self, sidecars, bases, by_owner: bool = False):
+    def __init__(self, sidecars, bases, by_owner: bool = False, device=None):
         self.sidecars = list(sidecars)
         self.bases = tuple(int(b) for b in bases)
         self.n_shards = len(self.sidecars) if by_owner else 0
         self.n_rows = sum(int(s.keys1d.shape[0]) for s in self.sidecars)
         if self.n_rows >= 1 << 31:
             raise ValueError("PartTable: global row ids are int32")
-        self.device = self.sidecars[0].keys1d.device
+        self.device = indexed(self.sidecars[0].keys1d.device
+                              if device is None else device)
+        self.part_devices = list(dict.fromkeys(
+            indexed(sc.keys1d.device) for sc in self.sidecars))
         rows = []
         for sc, base in zip(self.sidecars, self.bases):
             _check_part(sc)
+            peer.check_readable(self.device, sc.keys1d.device)
             rows.append([sc.keys1d.data_ptr(), sc.counts1d.data_ptr(),
                          sc.lut.data_ptr(), sc.first_key,
                          sc.lut.shape[0] | (sc.shift << 32), base])
@@ -134,6 +144,15 @@ def route_plain(first_keys, cand) -> torch.Tensor:
     return torch.searchsorted(first_keys[1:], cand, right=True)
 
 
+def probe_part_plain(sc, cand, min_count: int, probe_blocks: int):
+    """``probe_window_plain`` of ``cand`` in one partition, on the
+    partition's device; the rows come back on the candidates' device."""
+    row = probe_window_plain(sc.keys1d, sc.counts1d, sc.lut, sc.shift,
+                             cand.to(sc.keys1d.device), min_count,
+                             probe_blocks)
+    return row.to(cand.device)
+
+
 def probe_rows_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
     """Global row id (int32) of each candidate with a count ``>=
     min_count``, else ``INF32``: each candidate probes only the partition
@@ -142,8 +161,7 @@ def probe_rows_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
     ids = torch.full(cand.shape, INF32, dtype=torch.int32, device=cand.device)
     for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
         mine = torch.where(part == i, cand, SENTINEL)
-        row = probe_window_plain(sc.keys1d, sc.counts1d, sc.lut, sc.shift,
-                                 mine, min_count, sc.probe_blocks)
+        row = probe_part_plain(sc, mine, min_count, sc.probe_blocks)
         ids = torch.where(row >= 0, row + base, ids)
     return ids
 
@@ -179,6 +197,7 @@ def probe_rows(table: PartTable, cand, min_count: int) -> torch.Tensor:
     n_cand = cand.shape[0]
     lib = _lib()
     out = torch.empty(n_cand, dtype=torch.int32, device=cand.device)
+    peer.wait_for_peers(cand.device, table.part_devices)
     with torch.cuda.device(cand.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shk_probe_rows(

@@ -90,15 +90,18 @@ def _run(args, argv, start_run) -> int:
         n_shards=args.n_shards, backend=args.backend,
     )
     if args.n_shards > 1:
-        log.info("Count table sharded over %d devices", args.n_shards)
+        log.info("Count table sharded over %d devices (%d shards on %s)",
+                 len(set(engine.devices)), args.n_shards,
+                 ", ".join(map(str, engine.devices)))
 
     if args.load_table:
         from .io.checkpoint import load_table
 
         load_start = time.monotonic()
         table, saved_stats = load_table(args.load_table, engine.device,
-                                        args.n_shards, backend=args.backend)
-        synchronize(engine.device)
+                                        args.n_shards, backend=args.backend,
+                                        devices=engine.devices)
+        synchronize(*engine.devices)
         walls = {"ingest": time.monotonic() - load_start, "consolidate": 0.0}
         if table.k != k:
             log.info(
@@ -118,7 +121,7 @@ def _run(args, argv, start_run) -> int:
     ingest_start = time.monotonic()
     log.info("Ingesting reads...")
     read_plan = _ingest_all(args, engine, max_reads, cache_config, cached_ena)
-    synchronize(engine.device)
+    synchronize(*engine.devices)
     walls = {"ingest": time.monotonic() - ingest_start}
     from .utils.progress import get_progress
 
@@ -142,6 +145,7 @@ def _run(args, argv, start_run) -> int:
     log.info("%s", spinner_msg)
     consolidate_start = time.monotonic()
     histo_vecs = engine.consolidate()
+    synchronize(*engine.devices)
     walls["consolidate"] = time.monotonic() - consolidate_start
     if engine.stats.n_reads_ingested == 0:
         raise ValueError(
@@ -227,14 +231,18 @@ def _run_post_count(args, argv, start_run, engine, sample, directory, k,
         dump_graph=args.dump_graph, reads=threading_reads,
         max_nodes=node_budget, threads=args.threads,
     )
+    synchronize(*engine.devices)
     walls["spcr"] = time.monotonic() - spcr_start
-    # one line per run: stage walls and the device's peak allocation
-    peak = device_peak_bytes(engine.device)
+    # one line per run: stage walls and each device's peak allocation
+    peaks = []
+    for device in dict.fromkeys(engine.devices):
+        peak = device_peak_bytes(device)
+        peaks.append(f"device {device}, peak allocated "
+                     + ("not measured" if peak is None else f"{peak} bytes"))
     log.warning(
-        "  stage walls: ingest %.3f s, consolidate %.3f s, sPCR %.3f s; "
-        "device %s, peak allocated %s",
-        walls["ingest"], walls["consolidate"], walls["spcr"], engine.device,
-        "not measured" if peak is None else f"{peak} bytes",
+        "  stage walls: ingest %.3f s, consolidate %.3f s, sPCR %.3f s; %s",
+        walls["ingest"], walls["consolidate"], walls["spcr"],
+        "; ".join(peaks),
     )
 
     # ---- stats -------------------------------------------------------------

@@ -26,6 +26,17 @@ def histogram(counts: torch.Tensor, histo_max: int) -> np.ndarray:
     return histo.cpu().numpy().astype(np.uint64)
 
 
+def histogram_across(counts_list, histo_max: int) -> np.ndarray:
+    """``histogram`` of count arrays that may lie on several devices: one
+    clipped bincount a device (its arrays concatenated), summed on the
+    host."""
+    on: dict = {}
+    for counts in counts_list:
+        on.setdefault(counts.device, []).append(counts.reshape(-1))
+    return np.sum([histogram(torch.cat(c), histo_max) for c in on.values()],
+                  axis=0, dtype=np.uint64)
+
+
 _M2 = 0x3333_3333_3333_3333  # 2-bit group swap mask
 _M4 = 0x0F0F_0F0F_0F0F_0F0F
 _M8 = 0x00FF_00FF_00FF_00FF

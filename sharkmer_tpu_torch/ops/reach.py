@@ -142,7 +142,9 @@ def build_sidecar(part_keys, part_counts, k: int,
 
 def _gather_rows(table: PartTable, ids):
     """(keys, counts) of global row ``ids`` (INF-padded, any order) from
-    the partitions' sorted arrays; sentinel/0 where the id is INF."""
+    the partitions' sorted arrays; sentinel/0 where the id is INF. Each
+    partition gathers its rows on its own device, and the rows come
+    together on the ids' device (the launching card)."""
     live = ids != _INF32
     ids = ids.to(torch.int64)
     out_keys = torch.full(ids.shape, SENTINEL, dtype=torch.int64,
@@ -152,9 +154,9 @@ def _gather_rows(table: PartTable, ids):
         k1d, c1d = sc.keys1d, sc.counts1d
         local = ids - base
         mine = live & (local >= 0) & (local < k1d.shape[0])
-        safe = torch.where(mine, local, 0)
-        out_keys = torch.where(mine, k1d[safe], out_keys)
-        out_counts = torch.where(mine, c1d[safe], out_counts)
+        safe = torch.where(mine, local, 0).to(k1d.device)
+        out_keys = torch.where(mine, k1d[safe].to(ids.device), out_keys)
+        out_counts = torch.where(mine, c1d[safe].to(ids.device), out_counts)
     return out_keys, out_counts
 
 

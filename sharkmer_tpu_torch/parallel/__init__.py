@@ -1,4 +1,5 @@
-"""Sharded count tables: the k-mer keyspace split into owner shards, all
-held on the engine's one device (torch port of ``sharkmer_tpu.parallel``)."""
+"""Sharded count tables: the k-mer keyspace split into owner shards,
+placed on a list of devices (``device.shard_devices``; torch port of
+``sharkmer_tpu.parallel``)."""
 
-from .sharded_table import ShardedKmerTable, make_mesh  # noqa: F401
+from .sharded_table import ShardedKmerTable  # noqa: F401

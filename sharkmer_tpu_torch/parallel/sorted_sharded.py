@@ -5,28 +5,33 @@ fused sharded ingest step on the sorted backend.
 Torch port of ``sharkmer_tpu.parallel.sorted_sharded``. The keyspace is
 split by the high bits of the SplitMix64 hash (``kernels/hash.owner``);
 each of the ``S`` shards keeps one sorted master run of the keys it owns
-(``kmers``/``counts`` ``[S, local_capacity]``, sentinel tail), all on the
-engine's one device:
+(``kmers[s]``/``counts[s]``, ``[local_capacity]`` each, sentinel tail) on
+its device: shard ``s`` on ``devices[s * D // S]`` of a list of D <= S
+devices (``device.shard_devices``; JAX places one shard a device):
 
-* **insert**: the batch is grouped by owner (one stable sort of the
-  owners, one host read of the group sizes), and each shard aggregates
-  its own keys (``ops/sorted_store._aggregate``: sort, the ``run_starts``
-  kernel, segmented sums) into a pending run. JAX masks the whole
-  batch for every shard and slices the result to a fixed width, with a
+* **insert**: the batch is grouped by owner on its device (one stable
+  sort of the owners, one host read of the group sizes), and each
+  shard's keys are copied to the shard's device and aggregated there
+  (``ops/sorted_store._aggregate``: sort, the ``run_starts`` kernel,
+  segmented sums) into a pending run. JAX masks the whole batch for
+  every shard and slices the result to a fixed width, with a
   ``RuntimeError`` when one shard's share overflows it: static shapes
   that the port does not need, so its runs have the width of their keys
   and it never raises on skew.
 * **flush**: when the pending runs' width reaches ``max(2^14, local //
   2)`` (the JAX trigger, counted on the JAX widths), each shard
-  aggregates its master with its pending runs; while a shard holds
-  ``local_capacity`` keys or more, every master doubles (the JAX grow).
+  aggregates its master with its pending runs on its device; while a
+  shard holds ``local_capacity`` keys or more, every master doubles
+  (the JAX grow).
 * **merge_from**: the other store's masters become pending runs of this
-  one, shard by shard, then a flush: both stores share the owner route.
-* **queries**: lookups sum the shards' binary searches (a key lives in
-  one shard), the histogram is one clipped bincount over every shard,
-  and the sPCR data plane (``sharded_reach.py``) runs the reach closure
-  over the shards as one owner-routed table and the primer scans shard
-  by shard.
+  one, shard by shard (each copied to the shard's device), then a flush:
+  both stores share the owner route.
+* **queries**: lookups run each shard's binary search on its device and
+  sum the answers on ``devices[0]`` (a key lives in one shard), the
+  histogram is one clipped bincount a device, summed, and the sPCR data
+  plane (``sharded_reach.py``) runs the reach closure over the shards as
+  one owner-routed table launched on ``devices[0]`` and the primer scans
+  shard by shard, each on its device.
 
 Bit-identical to the single store by construction: the same aggregation
 arithmetic, and ownership only partitions the keyspace.
@@ -39,10 +44,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import device_list, shard_groups
 from ..kernels.hash import owner
 from ..ops import reach as reach_mod
 from ..ops.encoding import canonical_kmers
-from ..ops.histogram import histogram as _histogram
+from ..ops.histogram import histogram_across
 from ..ops.histogram import revcomp
 from ..ops.keys import (
     SENTINEL,
@@ -78,9 +84,11 @@ def _by_owner(kmers, counts, n_shards: int) -> list:
 @dataclass
 class ShardedSortedStore:
     k: int
-    kmers: torch.Tensor  # int64 [S, cap], each row sorted, sentinel tail
-    counts: torch.Tensor  # int64 [S, cap]
-    # one entry a batch or merge: S (keys, counts) runs, sorted, compact
+    devices: list  # D torch devices; shard s on devices[s * D // S]
+    kmers: list  # S int64 [cap] masters, each sorted, sentinel tail
+    counts: list  # S int64 [cap], each beside its master
+    # one entry a batch or merge: S (keys, counts) runs, sorted, compact,
+    # each on its shard's device
     pending: list = field(default_factory=list)
     pending_width: int = 0  # the JAX widths of the pending runs
     # (masters, ShardedSpcrIndex) for reach and the primer scans
@@ -88,27 +96,37 @@ class ShardedSortedStore:
 
     @staticmethod
     def create(k: int, n_shards: int, local_capacity: int = 1 << 14,
-               device="cpu") -> "ShardedSortedStore":
+               devices=("cpu",)) -> "ShardedSortedStore":
+        """An empty store; its shards on ``devices`` (a list: shard ``s``
+        on ``devices[s * D // S]``)."""
         cap = _next_pow2(local_capacity)
-        device = torch.device(device)
+        devices = device_list(devices)
+        shard_groups(n_shards, len(devices))  # D <= S
+        homes = [devices[s * len(devices) // n_shards]
+                 for s in range(n_shards)]
         return ShardedSortedStore(
-            k,
-            torch.full((n_shards, cap), SENTINEL, dtype=torch.int64,
-                       device=device),
-            torch.zeros((n_shards, cap), dtype=torch.int64, device=device),
+            k, devices,
+            [torch.full((cap,), SENTINEL, dtype=torch.int64, device=dev)
+             for dev in homes],
+            [torch.zeros(cap, dtype=torch.int64, device=dev) for dev in homes],
         )
 
     @property
     def n_shards(self) -> int:
-        return self.kmers.shape[0]
+        return len(self.kmers)
 
     @property
     def local_capacity(self) -> int:
-        return self.kmers.shape[1]
+        return self.kmers[0].shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.kmers.device
+        """The device that takes the batches and queries and launches the
+        closures over every shard: the first of the list."""
+        return self.devices[0]
+
+    def shard_device(self, s: int) -> torch.device:
+        return self.devices[s * len(self.devices) // self.n_shards]
 
     # -- insert ----------------------------------------------------------------
 
@@ -137,9 +155,12 @@ class ShardedSortedStore:
         return self
 
     def _owned_runs(self, kmers, counts) -> list:
-        """Each shard's aggregated run of the keys it owns."""
+        """Each shard's aggregated run of the keys it owns, on its
+        device."""
         runs = []
-        for uk, uc in _by_owner(kmers, counts, self.n_shards):
+        for s, (uk, uc) in enumerate(_by_owner(kmers, counts, self.n_shards)):
+            dev = self.shard_device(s)
+            uk, uc = uk.to(dev), uc.to(dev)
             if uk.numel():
                 uk, uc, nu = _aggregate(uk, uc, packed_count_bits(self.k))
                 uk, uc = uk[:nu], uc[:nu]
@@ -157,7 +178,10 @@ class ShardedSortedStore:
         if other.k != self.k or other.n_shards != self.n_shards:
             raise ValueError("merge_from requires the same k and shard count")
         other.flush()
-        self.pending.append(list(zip(other.kmers, other.counts)))
+        self.pending.append([(mk.to(self.shard_device(s)),
+                              mc.to(self.shard_device(s)))
+                             for s, (mk, mc) in enumerate(zip(other.kmers,
+                                                              other.counts))])
         self.pending_width += other.local_capacity
         return self.flush()
 
@@ -180,13 +204,14 @@ class ShardedSortedStore:
         cap = self.local_capacity
         while max(mk.shape[0] for mk, _ in merged) >= cap:
             cap *= 2
-        kmers = torch.full((self.n_shards, cap), SENTINEL, dtype=torch.int64,
-                           device=self.device)
-        counts = torch.zeros((self.n_shards, cap), dtype=torch.int64,
-                             device=self.device)
-        for s, (mk, mc) in enumerate(merged):
-            kmers[s, : mk.shape[0]] = mk
-            counts[s, : mc.shape[0]] = mc
+        kmers, counts = [], []
+        for mk, mc in merged:
+            kmers.append(torch.full((cap,), SENTINEL, dtype=torch.int64,
+                                    device=mk.device))
+            counts.append(torch.zeros(cap, dtype=torch.int64,
+                                      device=mk.device))
+            kmers[-1][: mk.shape[0]] = mk
+            counts[-1][: mc.shape[0]] = mc
         self.kmers, self.counts = kmers, counts
         self.pending = []
         self.pending_width = 0
@@ -196,7 +221,8 @@ class ShardedSortedStore:
 
     def lookup_directional(self, queries) -> np.ndarray:
         """Counts (uint32) of directional k-mers, looked up canonically in
-        every shard (a key lives in its owner's only)."""
+        every shard on its device (a key lives in its owner's only), the
+        answers summed on ``device``."""
         s = self.flush()
         q = keys_to_device(queries, s.device)
         if q.shape[0] == 0:
@@ -204,20 +230,28 @@ class ShardedSortedStore:
         canon = torch.minimum(q, revcomp(q, s.k))
         out = torch.zeros_like(canon)
         for keys, counts in zip(s.kmers, s.counts):
-            out += _lookup_part(keys, counts, s.local_capacity, canon)
+            out += _lookup_part(keys, counts, s.local_capacity,
+                                canon.to(keys.device)).to(s.device)
         return counts_to_numpy(out)
 
     def histogram(self, histo_max: int) -> np.ndarray:
-        return _histogram(self.flush().counts.reshape(-1), histo_max)
+        """A clipped bincount of each device's shards, summed."""
+        return histogram_across(self.flush().counts, histo_max)
+
+    def _gather(self, per_shard) -> torch.Tensor:
+        """``per_shard(keys, counts)`` of every shard, on ``device``."""
+        s = self.flush()
+        return torch.stack([per_shard(k, c).to(s.device)
+                            for k, c in zip(s.kmers, s.counts)])
 
     def n_unique(self) -> int:
-        return int((self.flush().kmers != SENTINEL).sum())
+        return int(self._gather(lambda k, c: (k != SENTINEL).sum()).sum())
 
     def n_total(self) -> int:
-        return int(self.flush().counts.sum())
+        return int(self._gather(lambda k, c: c.sum()).sum())
 
     def max_count(self) -> int:
-        return int(self.flush().counts.max())
+        return int(self._gather(lambda k, c: c.max()).max())
 
     # -- sPCR support: reach closure and primer range scans ----------------------
 
@@ -279,52 +313,68 @@ class ShardedSortedStore:
         """(sorted unique kmers uint64, counts uint32) over every shard,
         restricted to count >= ``min_count`` when it is above 1."""
         s = self.flush()
-        keys, counts = s.kmers.reshape(-1), s.counts.reshape(-1)
-        keep = keys != SENTINEL
-        if min_count > 1:
-            keep &= counts >= min_count
-        keys, order = torch.sort(keys[keep])
-        return keys_to_numpy(keys), counts_to_numpy(counts[keep][order])
+        keys, counts = [], []
+        for mk, mc in zip(s.kmers, s.counts):
+            keep = mk != SENTINEL
+            if min_count > 1:
+                keep &= mc >= min_count
+            keys.append(mk[keep].to(s.device))
+            counts.append(mc[keep].to(s.device))
+        keys, order = torch.sort(torch.cat(keys))
+        return keys_to_numpy(keys), counts_to_numpy(torch.cat(counts)[order])
 
     def to_dict(self) -> dict[int, int]:
         keys, counts = self.to_sorted_arrays()
         return dict(zip(keys.tolist(), counts.tolist()))
 
 
-def make_sorted_ingest_step(mesh: int, k: int, histo_max: int, cap: int):
+def make_sorted_ingest_step(devices, k: int, histo_max: int, cap: int):
     """The fused sharded ingest step on the sorted backend (the JAX
-    ``make_sorted_ingest_step``): encode every shard's slice of the
-    reads, route each k-mer to its owner shard (``_by_owner``; JAX
-    all-gathers the batch and masks it on every shard), aggregate each
-    shard's master run with its new k-mers (``_aggregate``, on the
+    ``make_sorted_ingest_step``) on the shards of ``devices`` (the mesh:
+    ``device.shard_devices``): encode each shard's slice of the reads on
+    its device, copy the whole batch to every device (JAX all-gathers
+    it), route each k-mer to its owner shard there (``_by_owner``; JAX
+    masks the batch on every shard), aggregate each shard's master run
+    with its new k-mers on its device (``_aggregate``, on the
     ``run_starts`` kernel), cut the result at ``cap`` (JAX's
     ``lax.slice``: the largest keys past ``cap`` are dropped), and the
     histogram summed over the shards.
 
     Returns step(kmers, counts, codes) -> (kmers, counts, histo) where
-      kmers/counts: int64 [S, cap], each row sorted with a sentinel tail
-        (a ``ShardedSortedStore``'s masters);
+      kmers/counts: S int64 [cap] tensors each, each sorted with a
+        sentinel tail, shard s on ``devices[s * D // S]`` (a
+        ``ShardedSortedStore``'s masters);
       codes: uint8 [S, reads_per_shard, width] (numpy or a tensor);
       histo: uint64 [histo_max+2] (numpy).
     """
-    n_shards = int(mesh)
+    devices = device_list(devices)
 
     def step(kmers, counts, codes):
-        if tuple(kmers.shape) != (n_shards, cap):
-            raise ValueError(f"masters {tuple(kmers.shape)} are not "
-                             f"{(n_shards, cap)}")
-        codes = torch.as_tensor(np.asarray(codes, np.uint8),
-                                device=kmers.device)
-        batch, _ = canonical_kmers(codes.reshape(-1, codes.shape[-1]), k)
-        batch = batch.reshape(-1)
-        out_k = torch.full_like(kmers, SENTINEL)
-        out_c = torch.zeros_like(counts)
-        groups = _by_owner(batch, torch.ones_like(batch), n_shards)
-        for s, (mine, ones) in enumerate(groups):
-            mk, mc, _ = _aggregate(torch.cat([kmers[s], mine]),
-                                   torch.cat([counts[s], ones]),
-                                   packed_count_bits(k))
-            out_k[s], out_c[s] = mk[:cap], mc[:cap]
-        return out_k, out_c, _histogram(out_c.reshape(-1), histo_max)
+        codes = np.asarray(codes, np.uint8)
+        n_shards = codes.shape[0]
+        groups = shard_groups(n_shards, len(devices))
+        homes = [devices[s * len(devices) // n_shards]
+                 for s in range(n_shards)]
+        if len(kmers) != n_shards or any(
+                tuple(mk.shape) != (cap,) or mk.device != dev
+                for mk, dev in zip(kmers, homes)):
+            raise ValueError(f"masters {[tuple(m.shape) for m in kmers]} are "
+                             f"not {n_shards} shards of {cap} on {devices}")
+        shard_kmers = []
+        for s, dev in enumerate(homes):
+            km, _ = canonical_kmers(torch.as_tensor(codes[s], device=dev), k)
+            shard_kmers.append(km.reshape(-1))
+        out_k, out_c = [], []
+        for (lo, hi), dev in zip(groups, devices):
+            batch = torch.cat([km.to(dev) for km in shard_kmers])
+            owned = _by_owner(batch, torch.ones_like(batch), n_shards)
+            for s in range(lo, hi):
+                mine, ones = owned[s]
+                mk, mc, _ = _aggregate(torch.cat([kmers[s], mine]),
+                                       torch.cat([counts[s], ones]),
+                                       packed_count_bits(k))
+                out_k.append(mk[:cap].contiguous())
+                out_c.append(mc[:cap].contiguous())
+        return out_k, out_c, histogram_across(out_c, histo_max)
 
     return step

@@ -126,7 +126,7 @@ def test_sharded_table_matches_jax(backend, n_shards, reads):
     jax_cls, cls = CLASSES[backend]
     k = 17
     want = jax_cls.create(k, make_mesh(n_shards), local_capacity=1 << 8)
-    got = cls.create(k, n_shards, 1 << 8, "cpu")
+    got = cls.create(k, n_shards, 1 << 8, ["cpu"])
     for codes in _batches(rs):
         want = want.ingest_codes(codes)
         got = got.ingest_codes(codes)
@@ -166,7 +166,8 @@ def test_sharded_growth_and_merge_match_jax(backend, reads):
     half = len(kms) // 2
     tables = {}
     for name, make in (("jax", lambda c: jax_cls.create(k, mesh, c)),
-                       ("torch", lambda c: cls.create(k, n_shards, c, "cpu"))):
+                       ("torch",
+                        lambda c: cls.create(k, n_shards, c, ["cpu"]))):
         one = make(1 << 6).insert_kmers(kms)
         a = make(1 << 8).insert_kmers(kms[:half])
         b = make(1 << 7).insert_kmers(kms[half:])
@@ -188,7 +189,7 @@ def test_sorted_prefix_scan_many_does_not_filter(reads):
     genome, rs = reads
     k, n_shards = 15, 4
     want = JaxStore.create(k, make_mesh(n_shards), local_capacity=1 << 10)
-    got = ShardedSortedStore.create(k, n_shards, 1 << 10, "cpu")
+    got = ShardedSortedStore.create(k, n_shards, 1 << 10, ["cpu"])
     for codes in _batches(rs, 2):
         want.ingest_codes(codes)
         got.ingest_codes(codes)
@@ -223,7 +224,7 @@ def reach_stores():
     rs = reads_from_genome(genome, 600, 70, seed=22)
     codes = codes_to_batch([ascii_to_codes(r) for r in rs])
     want = JaxStore.create(k, make_mesh(4), local_capacity=1 << 10)
-    got = ShardedSortedStore.create(k, 4, 1 << 10, "cpu")
+    got = ShardedSortedStore.create(k, 4, 1 << 10, ["cpu"])
     want.ingest_codes(codes)
     got.ingest_codes(codes)
     assert got.to_dict() == want.to_dict()
@@ -265,7 +266,8 @@ def test_owner_routed_probes(reach_stores):
     table = got._spcr_index().table
     assert table.n_shards == 4
     assert table.bases == tuple(s * got.local_capacity for s in range(4))
-    keys = got.kmers[got.kmers != (1 << 63) - 1]
+    keys = torch.cat(got.kmers)
+    keys = keys[keys != (1 << 63) - 1]
     rng = np.random.default_rng(9)
     misses = keys_to_device(rng.integers(0, 1 << 22, size=500,
                                          dtype=np.uint64), "cpu")
@@ -357,11 +359,18 @@ def test_n_unique_reads_the_claim_counter(tmp_path, reads, n_shards):
     def make(cap):
         if n_shards == 1:
             return KmerTable.create(k, cap, "cpu")
-        return ShardedKmerTable.create(k, n_shards, cap // n_shards, "cpu")
+        return ShardedKmerTable.create(k, n_shards, cap // n_shards, ["cpu"])
+
+    def groups(table):  # (slots, claims) tensors of the table's groups
+        if n_shards == 1:
+            return [table.slots], [table.claims]
+        return table.group_slots, table.group_claims
 
     def check(table):
-        occupied = int((table.slots[..., 0] != (1 << 63) - 1).sum())
-        assert table.n_unique() == int(table.claims.sum()) == occupied > 0
+        slots, claims = groups(table)
+        occupied = sum(int((s[..., 0] != (1 << 63) - 1).sum()) for s in slots)
+        assert table.n_unique() == sum(int(c.sum()) for c in claims) \
+            == occupied > 0
         assert table.n_unique() == len(table.to_dict())
 
     batches = _batches(rs, 3)
@@ -369,7 +378,7 @@ def test_n_unique_reads_the_claim_counter(tmp_path, reads, n_shards):
     for codes in batches[:2]:
         table = table.ingest_codes(codes)
         check(table)
-    assert table.slots[..., 0].numel() > 1 << 8  # it grew
+    assert sum(s[..., 0].numel() for s in groups(table)[0]) > 1 << 8  # grew
     other = make(1 << 9).ingest_codes(batches[2])
     check(other)
     table = table.merge_from(other)
@@ -403,20 +412,17 @@ def test_make_ingest_step_matches_jax(reads):
     from sharkmer_tpu.parallel.sharded_table import (
         make_ingest_step as jax_make_ingest_step,
     )
-    from sharkmer_tpu_torch.parallel.sharded_table import (
-        make_ingest_step,
-        make_mesh as port_make_mesh,
-    )
+    from sharkmer_tpu_torch.parallel.sharded_table import make_ingest_step
 
     _genome, rs = reads
     k, S, histo_max, per = 17, 4, 60, 100
     mesh = make_mesh(S)
     jax_step = jax_make_ingest_step(mesh, k, histo_max)
-    step = make_ingest_step(port_make_mesh(S), k, histo_max)
+    step = make_ingest_step(["cpu"], k, histo_max)
     want = JaxTable.create(k, mesh, local_capacity=1 << 12)
     keys, counts = want.keys, want.counts
-    got = ShardedKmerTable.create(k, S, 1 << 12, "cpu")
-    slots, claims = got.slots, got.claims
+    got = ShardedKmerTable.create(k, S, 1 << 12, ["cpu"])
+    slots, claims = got.group_slots, got.group_claims
     for half in (rs[: S * per], rs[S * per :]):
         codes = _shard_codes(half, S, per)
         keys, counts, jax_histo = jax_step(keys, counts,
@@ -426,15 +432,15 @@ def test_make_ingest_step_matches_jax(reads):
         np.testing.assert_array_equal(histo, np.asarray(jax_histo))
         for s in range(S):
             wk, wc = _shard_rows(keys[s], counts[s])
-            gk, gc = _shard_rows(keys_to_numpy(slot_keys(slots[s])),
-                                 slot_counts(slots[s]).numpy()
+            gk, gc = _shard_rows(keys_to_numpy(slot_keys(slots[0][s])),
+                                 slot_counts(slots[0][s]).numpy()
                                  .view(np.uint32))
             np.testing.assert_array_equal(gk, wk)
             np.testing.assert_array_equal(gc, wc)
-            assert int(claims[s]) == len(wk)
-    assert slots is got.slots and got.n_unique() == int(np.sum(histo[1:]))
+            assert int(claims[0][s]) == len(wk)
+    assert slots[0] is got.group_slots[0] and got.n_unique() == int(np.sum(histo[1:]))
     with pytest.raises(ValueError):
-        step(ShardedKmerTable.create(k, 2, 1 << 6, "cpu").slots, claims,
+        step(ShardedKmerTable.create(k, 2, 1 << 6, ["cpu"]).group_slots, claims,
              codes)
 
 
@@ -444,6 +450,8 @@ def test_make_sorted_ingest_step_matches_jax(reads, cap):
     shards (the port): each shard's master row, its counts and the summed
     histogram equal; at 2^8 a shard's keys pass ``cap`` and both cut the
     largest keys away."""
+    import torch
+
     from sharkmer_tpu.parallel.sorted_sharded import (
         make_sorted_ingest_step as jax_make_sorted_ingest_step,
     )
@@ -455,20 +463,21 @@ def test_make_sorted_ingest_step_matches_jax(reads, cap):
     k, S, histo_max, per = 17, 4, 60, 100
     mesh = make_mesh(S)
     jax_step = jax_make_sorted_ingest_step(mesh, k, histo_max, cap)
-    step = make_sorted_ingest_step(S, k, histo_max, cap)
+    step = make_sorted_ingest_step(["cpu"], k, histo_max, cap)
     want = JaxStore.create(k, mesh, local_capacity=cap)
     jk, jc = want.kmers, want.counts
-    got = ShardedSortedStore.create(k, S, cap, "cpu")
+    got = ShardedSortedStore.create(k, S, cap, ["cpu"])
     pk, pc = got.kmers, got.counts
     for half in (rs[: S * per], rs[S * per :]):
         codes = _shard_codes(half, S, per)
         jk, jc, jax_histo = jax_step(jk, jc, _jax_sharded(mesh, codes))
         pk, pc, histo = step(pk, pc, codes)
         np.testing.assert_array_equal(histo, np.asarray(jax_histo))
-        np.testing.assert_array_equal(keys_to_numpy(pk), np.asarray(jk))
-        np.testing.assert_array_equal(pc.numpy().astype(np.uint32),
-                                      np.asarray(jc))
-    full = bool((pk != (1 << 63) - 1).all())
+        np.testing.assert_array_equal(keys_to_numpy(torch.stack(pk)),
+                                      np.asarray(jk))
+        np.testing.assert_array_equal(torch.stack(pc).numpy()
+                                      .astype(np.uint32), np.asarray(jc))
+    full = bool((torch.stack(pk) != (1 << 63) - 1).all())
     assert full == (cap == 1 << 8)
 
 
