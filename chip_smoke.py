@@ -5,6 +5,12 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --closure-times`` runs only phase 3's and 13's
+closure and probe calls, the kernels alone (no plain version, no
+comparison), and ends with a line ``RESULT <JSON>`` of their median
+times: run it from two trees in turns to compare their kernels in one
+call.
+
 Phases, each printed on its own lines; every check raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -24,15 +30,26 @@ Phases, each printed on its own lines; every check raises on failure:
    times; then
    ``reach_closure`` against the plain closure loop on a 2^26-row table
    that holds every 19-mer of a random genome plus filler keys, as one
-   partition and cut into 21 key-range partitions: a narrow and a wide
-   call from roots on the genome at depth 2048 and f_cap 256, and a
-   warm-started call whose ``pre`` rows come from ``probe_rows`` (held
-   to its plain version at the warm start's 4096 keys): equal ``n_vis``,
-   ``iters``, ``overflow``, ``done``, sorted log and boundary set, and
-   median ms per call;
+   partition and cut into 21 key-range partitions (``closure_cases``): a
+   narrow and a wide call from roots on the genome at depth 2048 and
+   f_cap 256, the first retry's shape (f_cap 1024, f_narrow 64) from 24
+   of the wide roots, the 48 wide roots at that shape (they overflow its
+   narrow width: the overflowed state is held to plain's too), the 48
+   at the third retry's shape (f_cap 16384, f_narrow 1024: the kernel's
+   frontiers in global scratch), and a warm-started call whose ``pre``
+   rows come from ``probe_rows`` (held to its plain version at the warm
+   start's 4096 keys); then a table whose buckets hold 256 rows at the
+   LUT's bits cap (``wide_bucket_table``): a closure from 2 roots, and
+   ``probe_rows`` on 4096 of its keys (hits past a bucket's first 32
+   rows among them): equal ``n_vis``, ``iters``, ``overflow``, ``done``,
+   sorted log and boundary set, equal probe ids, and median ms per call;
+   every table's LUTs, as the descriptors point to them, equal to its
+   partitions' own;
 4. the main path: the port's CLI (``sharkmer_tpu_torch.main.main``,
    which is what ``python -m sharkmer_tpu_torch`` runs) in this process
-   on the first 1M reads, ``--mirror auto`` (the device reach closure),
+   on the first 1M reads, ``--mirror auto`` (the device reach closure;
+   ``-vv``, so each closure call's roots, iters, n_vis, f_cap and wall
+   are printed from ``_drive_closure``'s debug line),
    requiring the 7 FASTA files byte-identical and ``stats.yaml`` equal
    (but for ``command`` and ``peak_memory_bytes``) to the committed
    outputs of the JAX package in
@@ -88,7 +105,9 @@ Phases, each printed on its own lines; every check raises on failure:
     8's batch as four windowed ``hash_insert`` launches, exact against
     the windowed plain version and the one-launch table, each timed; the
     pointer-table ``hash_lookup`` (a 4096-query wave and 2^20 queries);
-    phase 13's closures over shards placed on the list; then the 1M cell
+    phase 13's closures over shards placed on the list (on several
+    cards, the peer shards' LUTs copied to the launching card and held
+    equal to their own); then the 1M cell
     with ``--n-shards 4`` on the sorted backend, on the hash backend with
     ``--mirror device``, and ``--load-table`` of phase 9's checkpoint.
     Where two or more cards are visible, the same again on distinct
@@ -152,6 +171,8 @@ GENOME_BASES = 1 << 20
 CLOSURE_PARTS = 21
 CLOSURE_SHARDS = 4  # the owner-routed layout of phase 13
 CLOSURE_MC = 2  # the closures' count floor
+WIDE_BUCKET_BASES = 1 << 14  # the genome of the 256-row-bucket table
+WIDE_BUCKET_DEPTH = 512
 HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
 STITCH_SHAPE = (2048, 1 << 16)
 HASH_READS = 1 << 17  # one CLI ingest batch
@@ -397,6 +418,37 @@ def closure_table(np, torch, n_rows: int, k: int):
     return keys, counts, n_real, fwd
 
 
+def wide_bucket_table(np, torch, k: int):
+    """A table whose buckets at the LUT's bits cap hold 256 rows (about
+    64 in each of 4 owner shards): each canonical k-mer of a random
+    genome of WIDE_BUCKET_BASES bases (default_rng(8)) with the 255 keys
+    that share all but its low 8 bits,
+    sorted, sentinel tail to a power of two. The genome's keys count
+    [CLOSURE_MC, 40), the others 1 (below the floor). Returns (keys,
+    counts, n_real, the genome's k-mers)."""
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    rng = np.random.default_rng(8)
+    genome = rng.integers(0, 4, size=WIDE_BUCKET_BASES)
+    n_k = WIDE_BUCKET_BASES - k + 1
+    fwd = np.zeros(n_k, np.int64)
+    for j in range(k):
+        fwd = (fwd << 2) | genome[j : j + n_k]
+    g = torch.from_numpy(fwd).cuda()
+    g = torch.unique(torch.minimum(g, revcomp(g, k)))
+    block = torch.arange(256, dtype=torch.int64, device="cuda")
+    uniq = torch.unique(((g >> 8) << 8)[:, None] | block[None, :])
+    n_real = uniq.shape[0]
+    n_rows = 1 << n_real.bit_length()
+    keys = torch.full((n_rows,), INT64_MAX, dtype=torch.int64, device="cuda")
+    keys[:n_real] = uniq
+    counts = torch.zeros(n_rows, dtype=torch.int64, device="cuda")
+    counts[:n_real] = 1
+    counts[torch.searchsorted(uniq, g)] = torch.from_numpy(
+        rng.integers(CLOSURE_MC, 40, size=g.shape[0])).cuda()
+    return keys, counts, n_real, fwd
+
+
 def cut_table(torch, keys, counts, n_real: int, n_parts: int, k: int):
     """The table cut into ``n_parts`` key-range partitions of equal real
     rows, each padded with sentinels to a power-of-two width as the
@@ -496,12 +548,55 @@ def owner_layouts(torch):
             shard_table(torch, keys, counts, n_real, CLOSURE_SHARDS, K)}
 
 
-def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
+def closure_cases(np, fwd) -> dict:
+    """The closure calls of phases 3, 13 and 18 on ``closure_table``'s
+    genome k-mers ``fwd``: name -> (roots, (depth, f_cap, f_narrow)).
+    Attempt shapes as ``_drive_closure`` runs them (both widths grow by
+    F_GROW a retry): 2 roots (narrow) and 48 roots (wide) at the first
+    attempt's; 24 of the wide roots at the first retry's (f_cap 1024,
+    f_narrow 64: frontiers in shared memory); the 48 roots at that shape,
+    which overflow its narrow width; and the 48 roots at the third
+    retry's (f_cap 16384, past the kernel's shared frontiers: global
+    scratch)."""
+    from sharkmer_tpu_torch.ops import reach
+
+    depth, f_cap, f_narrow = reach.DEPTH, reach.F_CAP, reach.F_NARROW
+    n_k = fwd.shape[0]
+    wide = fwd[np.linspace(1000, n_k - 1000, 48).astype(int)]
+
+    def attempt(j):
+        grow = reach.F_GROW ** j
+        return depth, f_cap * grow, f_narrow * grow
+
+    return {"narrow": (fwd[[n_k // 4, 3 * n_k // 4]], attempt(0)),
+            "wide": (wide, attempt(0)),
+            "retry": (wide[::2], attempt(1)),
+            "overflow": (wide, attempt(1)),
+            "retry global": (wide, attempt(3))}
+
+
+def check_luts(torch, name: str, table) -> None:
+    """Each partition's LUT as the descriptors point to it: on the
+    launching card, equal to the partition's own (a copy of it where the
+    partition lies on another card)."""
+    for i, (sc, lut) in enumerate(zip(table.sidecars, table.luts)):
+        require(lut.device == table.desc.device
+                and torch.equal(lut, sc.lut.to(table.desc.device))
+                and int(table.desc[i, 2]) == lut.data_ptr(),
+                f"{name}: partition {i}'s LUT on {lut.device} is not its "
+                f"own LUT on the launching card")
+
+
+def closure_phase(torch, np, card: str, latency: dict, layouts,
+                  plain: bool = True) -> dict:
     """``reach_closure`` against ``closure_plain`` on a 2^26-row table in
-    each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable);
-    ``probe_rows`` against ``probe_rows_plain`` at the warm start's PRE_W
-    keys. Each with its byte bound and its latency bound
-    (``chain_ms``)."""
+    each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable),
+    on ``closure_cases`` and a warm start; ``probe_rows`` against
+    ``probe_rows_plain`` at the warm start's PRE_W keys; then both on
+    ``wide_bucket_table``. Each with its byte bound and its latency bound
+    (``chain_ms``). ``plain=False`` runs and times the kernels alone
+    (``--closure-times``): no plain run, no comparison, no LUT check (so
+    that it also runs on trees older than ``PartTable.luts``)."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
@@ -514,8 +609,14 @@ def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
     print(f"closure table: {PART_ROWS} rows, {n_real} keys, "
           f"{GENOME_BASES}-base genome; built in "
           f"{time.monotonic() - start:.3f} s", flush=True)
+    for name, table in tables.items():
+        if not plain:
+            continue
+        check_luts(torch, name, table)
+        if table.lut_copy_bytes:  # peer shards' LUTs on the launching card
+            print(f"{name}: LUT copies on {table.device}, each equal to its "
+                  f"shard's own: {table.lut_copy_bytes} bytes", flush=True)
     depth, f_cap, f_narrow = reach.DEPTH, reach.F_CAP, reach.F_NARROW
-    n_k = fwd.shape[0]
 
     def c0_of(roots):
         c0 = np.full(8 * f_cap, reach.EMPTY, np.uint64)
@@ -523,8 +624,8 @@ def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
         c0[: len(roots)] = roots
         return keys_to_device(c0, "cuda")
 
-    def run(table, c0, pre_ids, fn):
-        return fn(table, c0, pre_ids, CLOSURE_MC, K, depth, f_cap, f_narrow)
+    def run(table, c0, pre_ids, fn, shape):
+        return fn(table, c0, pre_ids, CLOSURE_MC, K, *shape)
 
     def event_ms(fn):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -534,36 +635,48 @@ def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
         end.synchronize()
         return start.elapsed_time(end), out
 
-    def check(label, table, c0, pre_ids, plain_twice):
-        """Kernel against plain on one call, then CUDA-event times: the
-        plain run that checked, 10 kernel runs, and a second plain run
-        when ``plain_twice`` (plain, kernel x 10, plain)."""
-        plain_ms, want = event_ms(
-            lambda: run(table, c0, pre_ids, closure.closure_plain))
-        got = run(table, c0, pre_ids, closure.reach_closure)
+    def check(label, table, c0, pre_ids, shape, plain_twice=False,
+              overflow=False):
+        """Kernel against plain on one call at ``shape`` (depth, f_cap,
+        f_narrow), then CUDA-event times: the plain run that checked, 10
+        kernel runs, and a second plain run when ``plain_twice`` (plain,
+        kernel x 10, plain). ``overflow``: the call must overflow (else it
+        must walk past half its depth)."""
+        if plain:
+            plain_ms, want = event_ms(lambda: run(
+                table, c0, pre_ids, closure.closure_plain, shape))
+        got = run(table, c0, pre_ids, closure.reach_closure, shape)
         gs = closure.unpack_state(got[2])
-        ws = closure.unpack_state(want[2])
-        require(gs == ws, f"reach_closure {label}: [n_vis, iters, overflow, "
-                f"done] {gs} vs plain {ws}")
-        require(not gs[2] and gs[1] > depth // 2,
-                f"reach_closure {label}: overflow or a short walk {gs}")
-        g_log, w_log = (torch.sort(x[0]).values for x in (got, want))
-        err = int((g_log.to(torch.int64) - w_log.to(torch.int64)).abs().max())
-        require(err == 0 and torch.equal(g_log, w_log),
-                f"reach_closure {label}: sorted logs differ")
-        g_b, w_b = (torch.unique(x[1][x[1] != INT64_MAX]) for x in (got, want))
-        require(torch.equal(g_b, w_b),
-                f"reach_closure {label}: boundary sets differ")
+        require(gs[2] if overflow else not gs[2] and gs[1] > shape[0] // 2,
+                f"reach_closure {label}: overflow {gs[2]} (wanted "
+                f"{int(overflow)}) or a short walk {gs}")
+        g_log = torch.sort(got[0]).values
+        g_b = torch.unique(got[1][got[1] != INT64_MAX])
+        err = None
+        if plain:
+            ws = closure.unpack_state(want[2])
+            require(gs == ws, f"reach_closure {label}: [n_vis, iters, "
+                    f"overflow, done] {gs} vs plain {ws}")
+            w_log = torch.sort(want[0]).values
+            err = int((g_log.to(torch.int64)
+                       - w_log.to(torch.int64)).abs().max())
+            require(err == 0 and torch.equal(g_log, w_log),
+                    f"reach_closure {label}: sorted logs differ")
+            w_b = torch.unique(want[1][want[1] != INT64_MAX])
+            require(torch.equal(g_b, w_b),
+                    f"reach_closure {label}: boundary sets differ")
         ms = statistics.median(
-            event_ms(lambda: run(table, c0, pre_ids, closure.reach_closure))[0]
+            event_ms(lambda: run(table, c0, pre_ids, closure.reach_closure,
+                                 shape))[0]
             for _ in range(10))
-        if plain_twice:
+        if plain and plain_twice:
             plain_ms = (plain_ms + event_ms(lambda: run(
-                table, c0, pre_ids, closure.closure_plain))[0]) / 2
+                table, c0, pre_ids, closure.closure_plain, shape))[0]) / 2
         # levels that probed: up to 3 narrow levels after `done` ran on
         # an empty frontier
         levels = gs[1] - 3 * gs[3]
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        result = {"max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms if plain else None,
                   "n_vis": gs[0], "iters": gs[1], "done": gs[3],
                   "boundary": int(g_b.numel()),
                   "library_ms": None,  # no torch op runs a BFS closure
@@ -571,62 +684,132 @@ def closure_phase(torch, np, card: str, latency: dict, layouts) -> dict:
                                              gs, got[1], K)),
                   "latency_bound_ms": chain_ms(latency, levels),
                   "latency_levels": levels}
-        print(f"reach_closure: exact on {label}: {result}; median "
-              f"{ms:.4f} ms a call vs {plain_ms:.4f} ms plain on {card}",
-              flush=True)
+        what = "exact" if plain else "ran"
+        versus = f" vs {plain_ms:.4f} ms plain" if plain else ""
+        print(f"reach_closure: {what} on {label}: {result}; median "
+              f"{ms:.4f} ms a call{versus} on {card}", flush=True)
         return result, got
 
-    record = {}
-    for name, table in tables.items():
-        narrow = c0_of(fwd[[n_k // 4, 3 * n_k // 4]])
-        res, got = check(f"{name}, 2 roots (narrow)", table, narrow, None,
-                         name == "1 partition")
-        record[f"narrow, {name}"] = res
-        wide = c0_of(fwd[np.linspace(1000, n_k - 1000, 48).astype(int)])
-        record[f"wide, {name}"] = check(f"{name}, 48 roots (wide)", table,
-                                        wide, None, False)[0]
-        # a re-prefetch from the narrow call's boundary, warm-started with
-        # its interior, as pcr/prefetch.py does
-        log_sorted = torch.sort(got[0]).values
-        visited, _ = reach._gather_rows(table, log_sorted[: res["n_vis"]])
-        bound = keys_to_numpy(got[1])
-        bound = bound[bound != reach.EMPTY]
-        pre = np.setdiff1d(keys_to_numpy(visited), bound)
-        pre_t = keys_to_device(reach._pad_pre(pre, roots=bound), "cuda")
-        args = (table, pre_t, CLOSURE_MC)
+    def check_probe(label, table, cand):
+        """``probe_rows`` against ``probe_rows_plain`` on ``cand``, timed
+        (kernel ids alone with ``plain=False``)."""
+        args = (table, cand, CLOSURE_MC)
+        if not plain:
+            ids = probe.probe_rows(*args)
+            return {"ms": median_ms(torch, lambda: probe.probe_rows(*args),
+                                    20)}, ids
         result = compare(torch, "probe_rows", lambda: probe.probe_rows(*args),
                          lambda: probe.probe_rows_plain(*args), 20, card,
-                         f"{pre_t.numel()} warm-start keys, {name}")
-        # every warm-start key was visited, so each one hits
-        pre_ids = probe.probe_rows(*args)
-        n_pre = int((pre_t != INT64_MAX).sum())
-        require(int((pre_ids != probe.INF32).sum()) == n_pre > 0,
-                f"probe_rows: not every one of {n_pre} warm-start keys hit")
-        result.update(byte_bound(12 * pre_t.numel()
-                                 + 48 * len(table.sidecars)
-                                 + routed_bytes(torch, table, pre_t)))
+                         label)
+        result.update(byte_bound(12 * cand.numel() + 48 * len(table.sidecars)
+                                 + routed_bytes(torch, table, cand)))
         # one level of probes, all in parallel: the key, the LUT, the
         # bucket rows
         result["latency_bound_ms"] = chain_ms(latency, 1)
-        record[f"probe_rows, {name}"] = result
+        return result, probe.probe_rows(*args)
+
+    cases = closure_cases(np, fwd)
+    record = {}
+    for name, table in tables.items():
+        got = {}
+        for call, (roots, shape) in cases.items():
+            record[f"{call}, {name}"], got[call] = check(
+                f"{name}, {call}: {len(roots)} roots at (depth, f_cap, "
+                f"f_narrow) {shape}", table, c0_of(roots), None, shape,
+                plain_twice=call == "narrow" and name == "1 partition",
+                overflow=call == "overflow")
+        # a re-prefetch from the narrow call's boundary, warm-started with
+        # its interior, as pcr/prefetch.py does
+        narrow = got["narrow"]
+        log_sorted = torch.sort(narrow[0]).values
+        visited, _ = reach._gather_rows(
+            table, log_sorted[: record[f"narrow, {name}"]["n_vis"]])
+        bound = keys_to_numpy(narrow[1])
+        bound = bound[bound != reach.EMPTY]
+        pre = np.setdiff1d(keys_to_numpy(visited), bound)
+        pre_t = keys_to_device(reach._pad_pre(pre, roots=bound), "cuda")
+        record[f"probe_rows, {name}"], pre_ids = check_probe(
+            f"{pre_t.numel()} warm-start keys, {name}", table, pre_t)
+        # every warm-start key was visited, so each one hits
+        n_pre = int((pre_t != INT64_MAX).sum())
+        require(int((pre_ids != probe.INF32).sum()) == n_pre > 0,
+                f"probe_rows: not every one of {n_pre} warm-start keys hit")
         record[f"pre, {name}"] = check(f"{name}, warm start", table,
-                                       c0_of(bound), pre_ids, False)[0]
+                                       c0_of(bound), pre_ids,
+                                       (depth, f_cap, f_narrow))[0]
     del tables, keys, counts
+    torch.cuda.empty_cache()
+    # buckets past 32 rows at the LUT's bits cap: the probe's rows past
+    # the first 32 of a bucket, in the closure and in probe_rows
+    keys, counts, n_real, fwd = wide_bucket_table(np, torch, K)
+    n_k, shape = fwd.shape[0], (WIDE_BUCKET_DEPTH, f_cap, f_narrow)
+    roots = c0_of(fwd[[n_k // 4, 3 * n_k // 4]])
+    # PRE_W of the table's keys: genome k-mers (counts >= the floor, so
+    # hits) and the keys beside them in their 256-key blocks (misses)
+    pick = torch.from_numpy(np.sort(np.random.default_rng(9).choice(
+        n_real, reach.PRE_W, replace=False))).cuda()
+    cand, hits = keys[pick], int((counts[pick] >= CLOSURE_MC).sum())
+    for name, build in layouts.items():
+        table = build(keys, counts, n_real)
+        if plain:
+            check_luts(torch, f"wide buckets, {name}", table)
+        widest = max(int((sc.lut[1:] - sc.lut[:-1]).max())
+                     for sc in table.sidecars)
+        require(widest > 32 and all(
+            sc.bits == reach._lut_bits_cap(K) for sc in table.sidecars),
+            f"wide buckets, {name}: the widest bucket holds {widest} rows")
+        record[f"wide bucket, {name}"] = check(
+            f"{name}, buckets of up to {widest} rows at the bits cap, 2 roots",
+            table, roots, None, shape)[0]
+        res, ids = check_probe(
+            f"{reach.PRE_W} keys in buckets of up to {widest} rows, {name}",
+            table, cand)
+        past = rows_past(torch, table, cand, ids, 32)
+        require(int((ids != probe.INF32).sum()) == hits > 0 and past > 0,
+                f"probe_rows, wide buckets, {name}: {hits} genome keys, "
+                f"{int((ids != probe.INF32).sum())} hits, {past} of them "
+                f"past a bucket's first 32 rows")
+        print(f"probe_rows, wide buckets, {name}: {hits} hits, {past} past "
+              f"a bucket's first 32 rows", flush=True)
+        record[f"probe_rows wide bucket, {name}"] = res
+    del table, keys, counts
     torch.cuda.empty_cache()
     return record
 
 
+def rows_past(torch, table, cand, ids, n: int) -> int:
+    """How many of the hits ``ids`` (global row ids of ``cand``, INF32
+    for a miss) lie past the first ``n`` rows of their bucket."""
+    from sharkmer_tpu_torch.kernels import probe
+
+    hit = ids != probe.INF32
+    bases = torch.tensor(table.bases, dtype=torch.int64, device=ids.device)
+    part = torch.searchsorted(bases, ids[hit].to(torch.int64), right=True) - 1
+    past = 0
+    for i, sc in enumerate(table.sidecars):
+        mine = part == i
+        row = ids[hit][mine].to(torch.int64) - table.bases[i]
+        lut = sc.lut.to(ids.device).to(torch.int64)
+        b = torch.clamp(cand[hit][mine] >> sc.shift, max=lut.shape[0] - 2)
+        past += int((row - lut[b] >= n).sum())
+    return past
+
+
 class _RunLog(logging.Handler):
-    """Keeps the CLI's stage-wall and sPCR-phase lines of each run and
-    every fallback warning of the sPCR index."""
+    """Keeps the CLI's stage-wall and sPCR-phase lines of each run, every
+    fallback warning of the sPCR index and, in a run with ``-vv``, the
+    debug line of each closure call."""
 
     def __init__(self):
-        super().__init__(logging.WARNING)
+        super().__init__(logging.DEBUG)
         self.lines: list[str] = []
         self.fallbacks: list[str] = []
+        self.closures: list[str] = []  # _drive_closure's lines (-vv)
 
     def emit(self, record):
         msg = record.getMessage()
+        if msg.startswith("reach: "):
+            self.closures.append(msg)
         if "stage walls:" in msg or "sPCR phases:" in msg:
             self.lines.append(msg.strip())
         if any(w in msg for w in FALLBACK_WARNINGS):
@@ -733,6 +916,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     for index in range(torch.cuda.device_count()):  # each card's own peak
         torch.cuda.reset_peak_memory_stats(index)
     n_lines = len(run_log.lines)
+    run_log.closures.clear()
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
                    ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
                    ctx.table_calls):
@@ -781,6 +965,9 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
               f"{waves[0]}-{waves[-1]} queries (median "
               f"{waves[len(waves) // 2]})")
     print(f"{label}: kernel launches {counts}", flush=True)
+    for line in run_log.closures:
+        # the kept attempt of each call: roots, iters, n_vis, f_cap, wall
+        print(f"{label}: closure call: {line[len('reach: '):]}")
 
     stats_name = f"{sample}.stats.yaml"
     want, got = sorted(os.listdir(oracle)), sorted(os.listdir(out))
@@ -1481,12 +1668,30 @@ def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
     return label
 
 
+def closure_times(torch, np, card: str) -> int:
+    """``--closure-times``: phase 3's and 13's closure and probe calls,
+    the kernels alone, ending in ``RESULT <JSON>``."""
+    from sharkmer_tpu_torch.kernels import build
+
+    build.build_all(["reach_closure", "probe_rows", "chase"])
+    latency = load_latency(torch)
+    record = closure_phase(torch, np, card, latency,
+                           {**key_range_layouts(torch),
+                            **owner_layouts(torch)}, plain=False)
+    print(f"card: {card}")
+    print("RESULT " + json.dumps(record), flush=True)
+    return 0
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "sharkmer_tpu_torch")),
             f"no sharkmer_tpu_torch package beside {__file__}")
     import torch
 
     require(torch.cuda.is_available(), "torch sees no CUDA device")
+    args = sys.argv[1:]
+    require(args in ([], ["--closure-times"]),
+            f"unknown arguments {args}: none, or --closure-times")
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -1503,7 +1708,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s); using {kind}", flush=True)
     synth = None
-    if not os.path.exists(FASTQ):
+    if not os.path.exists(FASTQ) and not args:
         synth = subprocess.Popen([
             sys.executable, "-c",
             "import sys; from sharkmer_tpu_torch.tools.synth import "
@@ -1512,6 +1717,8 @@ def main() -> int:
             PANEL, FASTQ, str(N_READS_MAX),
         ], cwd=HERE)
     try:
+        if args:
+            return closure_times(torch, np, card)
         phase("2. build")
         start = time.monotonic()
         sources = sorted({os.path.basename(src)[:-3]
@@ -1551,7 +1758,9 @@ def main() -> int:
         ctx = instrument(torch, kernels)
         os.environ.pop("SHARKMER_MAX_AGG", None)
         os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
-        runs = {"default": drive_main_path(ctx, "default", 1_000_000)}
+        # -vv: _drive_closure's debug line of each closure call
+        runs = {"default": drive_main_path(ctx, "default", 1_000_000,
+                                           ("-vv",))}
         group_labels = {}  # phase 18's placements: tag -> record label
 
         phase("5. main path again with SHARKMER_MAX_AGG=2^24")
@@ -1732,22 +1941,44 @@ def main() -> int:
                        shards_ms=owned["ms"], shards_plain_ms=owned["plain_ms"],
                        shards_bound_ms=owned["bound_ms"],
                        shards_max_abs_err=owned["max_abs_err"])
+            # 4096 keys of the 256-row-bucket table, on each layout
+            for layout in ("1 partition", parts, shards):
+                wide = record[f"probe_rows wide bucket, {layout}"]
+                rec.update({f"wide_bucket_{layout.split()[0]}_{key}":
+                            wide[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                  "max_abs_err")})
+            rec["max_abs_err"] = max(
+                value["max_abs_err"] for label, value in record.items()
+                if label.startswith("probe_rows"))
         elif name == "reach_closure":
             # a narrow call on one partition; on CLOSURE_PARTS, a wide
             # call, and owner-routed calls over CLOSURE_SHARDS beside it
-            narrow, wide = record[f"narrow, {parts}"], record["wide, 1 partition"]
+            narrow = record[f"narrow, {parts}"]
             rec = dict(record["narrow, 1 partition"], **latency,
                        parts_ms=narrow["ms"], parts_plain_ms=narrow["plain_ms"],
                        parts_bound_ms=narrow["bound_ms"],
-                       parts_latency_bound_ms=narrow["latency_bound_ms"],
-                       wide_ms=wide["ms"], wide_plain_ms=wide["plain_ms"],
-                       wide_bound_ms=wide["bound_ms"],
-                       wide_latency_bound_ms=wide["latency_bound_ms"])
-            for call in ("narrow", "wide", "pre"):
+                       parts_latency_bound_ms=narrow["latency_bound_ms"])
+            # the wide, retry-shape (frontiers in shared memory; in global
+            # scratch at the third retry's) and 256-row-bucket calls on
+            # one partition
+            for call in ("wide", "retry", "retry global", "wide bucket"):
+                one = record[f"{call}, 1 partition"]
+                rec.update({f"{call.replace(' ', '_')}_{key}": one[key]
+                            for key in ("ms", "plain_ms", "bound_ms",
+                                        "latency_bound_ms", "max_abs_err")})
+            for call in ("narrow", "wide", "pre", "retry", "retry global",
+                         "wide bucket"):
                 owned = record[f"{call}, {shards}"]
-                rec.update({f"shards_{call}_{key}": owned[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "latency_bound_ms",
-                    "max_abs_err", "n_vis", "iters")})
+                rec.update({f"shards_{call.replace(' ', '_')}_{key}":
+                            owned[key] for key in (
+                                "ms", "plain_ms", "bound_ms",
+                                "latency_bound_ms", "max_abs_err", "n_vis",
+                                "iters")})
+            rec["max_abs_err"] = max(
+                value["max_abs_err"] for label, value in record.items()
+                if label.split(",")[0] in ("narrow", "wide", "pre", "retry",
+                                           "retry global", "overflow",
+                                           "wide bucket"))
         else:
             rec = record[name]
         # phase 18: the same kernel on the shards of each placement
@@ -1760,8 +1991,10 @@ def main() -> int:
                             for key in ("ms", "plain_ms", "bound_ms",
                                         "max_abs_err")})
             elif name == "reach_closure":
-                for call in ("narrow", "wide", "pre"):
+                for call in ("narrow", "wide", "pre", "retry",
+                             "retry global"):
                     owned = record[f"{call}, {label}"]
+                    call = call.replace(" ", "_")
                     rec.update({f"{tag}_{call}_{key}": owned[key] for key in (
                         "ms", "plain_ms", "bound_ms", "latency_bound_ms",
                         "max_abs_err", "n_vis", "iters")})

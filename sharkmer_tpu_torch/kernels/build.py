@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,10 +44,13 @@ def nvcc() -> str:
 def _build(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    # a shared header (csrc/*.cuh) counts as part of every source
+    # a shared header (csrc/*.cuh), and a source it includes, count as
+    # part of the source
+    with open(src) as f:
+        included = set(re.findall(r'#include "(\w+\.cu)"', f.read()))
     newest = max(os.path.getmtime(os.path.join(CSRC_DIR, f))
                  for f in os.listdir(CSRC_DIR)
-                 if f == f"{name}.cu" or f.endswith(".cuh"))
+                 if f == f"{name}.cu" or f.endswith(".cuh") or f in included)
     if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

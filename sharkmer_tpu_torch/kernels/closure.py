@@ -21,9 +21,9 @@ every level. On a CPU tensor the wrapper runs the plain version
 (``closure_plain``, the CPU path and the test oracle): that state
 machine as a host loop of torch ops with ``probe_window_plain`` over
 every partition. On a CUDA tensor it launches the hand-written kernel
-in ``csrc/reach_closure.cu`` (the whole call in one block; see the
-source) on the current stream, or raises. ``reach_closure.launches``
-counts the wrapper's kernel launches.
+in ``csrc/reach_closure.cu`` (the whole call on one thread-block
+cluster; see the source) on the current stream, or raises.
+``reach_closure.launches`` counts the wrapper's kernel launches.
 """
 
 from __future__ import annotations
@@ -195,11 +195,25 @@ def closure_plain(table: PartTable, c0, pre_ids, min_count: int, k: int,
     return log_ids, boundary, packed
 
 
-def closure_scratch(n_rows: int, depth: int, f_cap: int, device) -> dict:
+def spill_width(n_c0: int, f_cap: int) -> int:
+    """The most candidates of one level: the roots, or 8 neighbours of
+    each of f_cap walkers."""
+    return max(n_c0, 8 * f_cap)
+
+
+def closure_scratch(n_rows: int, depth: int, f_cap: int, device,
+                    n_c0: int | None = None) -> dict:
     """The kernel's scratch and outputs: the visited bitmap (a bit per
-    global row id, zeroed), the two frontiers ((key, reverse complement)
-    per walker), the log (``INF32``-filled), the boundary and the state."""
+    global row id, zeroed), the two global frontiers ((key, reverse
+    complement) per walker; the kernel keeps frontiers of up to 4096
+    walkers in shared memory instead), the spill of a
+    level's claims past its width (``(key, rc)`` pairs, then ids, for
+    ``spill_width(n_c0, f_cap)`` candidates; ``n_c0`` defaults to
+    ``_drive_closure``'s ``8 * f_cap``), the log (``INF32``-filled), the
+    boundary and the state."""
+    n_spill = spill_width(8 * f_cap if n_c0 is None else n_c0, f_cap)
     return {
+        "spill": torch.empty(3 * n_spill, dtype=torch.int64, device=device),
         "bitmap": torch.zeros((n_rows + 31) // 32, dtype=torch.int32,
                               device=device),
         "front": torch.empty(2 * f_cap * 2, dtype=torch.int64, device=device),
@@ -221,7 +235,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_shk_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.shk_reach_closure.argtypes = [
-            p, i, i, p, i, p, i, ctypes.c_int64, i, i, i, i, p, p, p, p, p, p,
+            p, i, i, p, i, p, i, ctypes.c_int64, i, i, i, i, p, p, p, p, p,
+            p, i, p,
         ]
         lib.shk_reach_closure.restype = ctypes.c_int
         lib._shk_bound = True
@@ -262,7 +277,8 @@ def reach_closure(table: PartTable, c0, pre_ids, min_count: int, k: int,
     lib = _lib()
     # scratch, frontier, log and outputs on the launching card; the
     # partitions wherever the table's descriptors point
-    out = closure_scratch(table.n_rows, depth, f_cap, c0.device)
+    out = closure_scratch(table.n_rows, depth, f_cap, c0.device,
+                          c0.shape[0])
     n_pre = 0 if pre_ids is None else pre_ids.shape[0]
     peer.wait_for_peers(c0.device, table.part_devices)
     with torch.cuda.device(c0.device):
@@ -273,7 +289,8 @@ def reach_closure(table: PartTable, c0, pre_ids, min_count: int, k: int,
             pre_ids.data_ptr() if n_pre else None, n_pre, int(min_count), k,
             depth, f_cap, f_narrow, out["bitmap"].data_ptr(),
             out["front"].data_ptr(), out["log"].data_ptr(),
-            out["boundary"].data_ptr(), out["state"].data_ptr(), stream,
+            out["boundary"].data_ptr(), out["state"].data_ptr(),
+            out["spill"].data_ptr(), out["spill"].shape[0] // 3, stream,
         )
     if rc != 0:
         raise RuntimeError(f"reach_closure: CUDA launch failed (cudaError {rc})")

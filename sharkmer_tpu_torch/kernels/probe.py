@@ -107,7 +107,11 @@ class PartTable:
     other cards (the shards of ``parallel/`` on a device list): each must
     be readable from ``device`` (``peer.check_readable``: the same card,
     or a peer with access enabled), and ``part_devices`` are the devices
-    whose streams a launch waits on."""
+    whose streams a launch waits on. ``luts`` are the LUTs the
+    descriptors point to: each partition's own where it lies on
+    ``device``, else a copy made there once (``lut_copy_bytes`` in all),
+    so that a probe's LUT load stays on the launching card and only its
+    bucket rows cross to a peer."""
 
     def __init__(self, sidecars, bases, by_owner: bool = False, device=None):
         self.sidecars = list(sidecars)
@@ -121,11 +125,18 @@ class PartTable:
         self.part_devices = list(dict.fromkeys(
             indexed(sc.keys1d.device) for sc in self.sidecars))
         rows = []
+        self.luts = []
+        self.lut_copy_bytes = 0
         for sc, base in zip(self.sidecars, self.bases):
             _check_part(sc)
             peer.check_readable(self.device, sc.keys1d.device)
+            lut = sc.lut
+            if indexed(lut.device) != self.device:
+                lut = lut.to(self.device)
+                self.lut_copy_bytes += 4 * lut.numel()
+            self.luts.append(lut)
             rows.append([sc.keys1d.data_ptr(), sc.counts1d.data_ptr(),
-                         sc.lut.data_ptr(), sc.first_key,
+                         lut.data_ptr(), sc.first_key,
                          sc.lut.shape[0] | (sc.shift << 32), base])
         self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
         self.first_keys = self.desc[:, 3].contiguous()

@@ -11,7 +11,8 @@ untraced (kernels built, caches warm), then once under
   intervals) and its idle share, 1 - busy / traced wall;
 * the closure attempts (``ops/reach._reach_call``, each one
   ``reach_closure`` launch) and the device work they enqueue: kernel
-  launches, copies and sets issued inside them, per attempt;
+  launches, copies and sets issued inside them, per attempt; the device
+  time of ``reach_closure_kernel`` and its launches;
 * the ten largest device items by name (total ms and count).
 
 It needs a CUDA device and raises without one; the last line is the
@@ -99,8 +100,11 @@ def main(argv=None) -> int:
         return getattr(avg, "self_device_time_total",
                        getattr(avg, "self_cuda_time_total", 0.0)) / 1e3
 
-    top = sorted((a for a in prof.key_averages() if device_ms(a) > 0),
+    averages = list(prof.key_averages())
+    top = sorted((a for a in averages if device_ms(a) > 0),
                  key=device_ms, reverse=True)[:TOP_ITEMS]
+    kernel = [a for a in averages
+              if "reach_closure_kernel" in a.key and device_ms(a) > 0]
     summary = {
         "device": torch.cuda.get_device_name(0),
         "untraced_s": walls, "traced_s": traced, "device_busy_s": busy_ms / 1e3,
@@ -109,6 +113,8 @@ def main(argv=None) -> int:
         "device_work_in_closures": in_calls,
         "per_attempt": in_calls / max(len(calls), 1),
         "closure_s": sum(e - s for s, e in calls) / 1e6,
+        "closure_kernel_ms": sum(device_ms(a) for a in kernel),
+        "closure_kernel_launches": sum(a.count for a in kernel),
         "largest": [{"name": a.key, "ms": device_ms(a), "count": a.count}
                     for a in top],
     }
@@ -117,7 +123,9 @@ def main(argv=None) -> int:
           f"{summary['idle_share']:.3f}")
     print(f"closure attempts {len(calls)} ({summary['closure_s']:.3f} s); "
           f"{in_calls} launches, copies and sets inside them, "
-          f"{summary['per_attempt']:.1f} per attempt")
+          f"{summary['per_attempt']:.1f} per attempt; reach_closure_kernel "
+          f"{summary['closure_kernel_ms']:.3f} ms over "
+          f"{summary['closure_kernel_launches']} launches")
     for item in summary["largest"]:
         print(f"  {item['ms']:10.3f} ms  {item['count']:7d}  {item['name']}")
     print(json.dumps(summary), flush=True)
