@@ -14,8 +14,13 @@ call.
 Phases, each printed on its own lines; every check raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-   the 4M-read synthetic cnidaria FASTQ starts generating in a child
-   process (``tools/synth.py``, seed 0), to be ready by phase 4;
+   the 8M-read synthetic FASTQ of each panel of the offline grid
+   (``benchmarks/benchmark_offline.yaml``: cnidaria, hydrozoa and
+   metazoa, seeds 0, 1 and 2) starts generating in a child process of
+   its own (``tools/synth.py``); cnidaria's is ready by phase 4, whose
+   runs read its first N reads (``-m``: ``synth.py`` writes 250k-read
+   slabs, so they are the reads of the JAX package's cells), the other
+   two by phase 19;
 2. build every CUDA source in ``sharkmer_tpu_torch/csrc`` (one nvcc
    each, all at once, sm_90a);
 3. the card's dependent-load latency through L2 and from DRAM
@@ -112,7 +117,21 @@ Phases, each printed on its own lines; every check raises on failure:
     ``--mirror device``, and ``--load-table`` of phase 9's checkpoint.
     Where two or more cards are visible, the same again on distinct
     cards (``cuda:0,cuda:1,...``), after the dependent-load latency into
-    a peer's DRAM; otherwise one line says that part did not run.
+    a peer's DRAM; otherwise one line says that part did not run;
+19. the offline grid: the 7 cells of ``benchmarks/work/`` that phases
+    4-18 do not run (cnidaria at 8M reads; hydrozoa and metazoa at 1M,
+    4M and 8M) on the default main path (``--backend sorted``,
+    ``--mirror auto``, ``-vv``), then ``--backend hash`` on cnidaria 8M
+    (the table past 2^28 slots) and on hydrozoa and metazoa 1M, each
+    held to its committed cell; each run prints its closure calls (the
+    attempts past the first are overflow retries) and its batched primer
+    scans (``panel_scan`` calls past ``max_out`` 2^14 are retries);
+20. the tools: ``python -m sharkmer_tpu_torch.tools.run_grid --panel
+    metazoa --max-reads 1000000`` as a subprocess, its cell in
+    ``build/grid/work/`` held to the committed one, with a result YAML
+    and a markdown report new in ``build/grid/results/``; then ``python
+    -m sharkmer_tpu_torch.tools.bench --quick``, whose JSON line must
+    report every gene of the panel recovered.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -122,18 +141,23 @@ Each kernel's launch count is reset just before each main-path run and
 read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
 warm starts) must launch in phases 4 and 5 (``run_starts`` also in 14
 and in 17's sorted runs), ``stitch_rows`` in phases 5 and 7,
-``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted) and 18
-(sorted) at least once per closure call (the run's ``closures`` sPCR
-phase), where ``probe_rows`` may launch no more often than that, the
+``run_ends`` in every sorted run of phase 19 (its ghosted first drain)
+and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs,
+``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted), 18
+(sorted) and 19 (sorted) at least once per closure call (the run's
+``closures`` sPCR phase), where ``probe_rows`` may launch no more often
+than that, the
 plain closure loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
 12, 15, 16, 17 (hash) and 18 (hash), once per insert of a batch, merge
 and grow of a hash table and device group (one routed launch for all
-shards of a group), ``hash_lookup`` in phases 10, 15 and 18 (``--mirror
+shards of a group; also in phase 19's hash runs), ``hash_lookup`` in
+phases 10, 15 and 18 (``--mirror
 device``), once per lookup wave, and none of the sorted store's kernels
 in those hash runs;
 ``KmerTable.to_sorted_arrays`` (the host mirror) runs once in phases 9
-(plus once for the checkpoint), 11 (hash), 12 and 17 (hash, 1 shard),
+(plus once for the checkpoint), 11 (hash), 12, 17 (hash, 1 shard) and
+19 (hash),
 never under ``--mirror device``, and ``ShardedKmerTable``'s once in
 phases 15 (host mirror), 16, 17 (hash, 4 shards) and 18 (load). A
 logged
@@ -158,12 +182,23 @@ import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PANEL = os.path.join(HERE, "sharkmer_tpu_torch", "panels", "cnidaria.yaml")
-ORACLES = os.path.join(HERE, "benchmarks", "work", "cnidaria",
-                       "synthetic-seed0")
-N_READS_MAX = 4_000_000
-FASTQ = os.path.join(HERE, "benchmarks", "work", "synth",
-                     f"cnidaria_synthetic-seed0_{N_READS_MAX}.fastq.gz")
+# the offline grid (benchmarks/benchmark_offline.yaml): each panel's seed
+SEEDS = {"cnidaria": 0, "hydrozoa": 1, "metazoa": 2}
+N_READS_MAX = 8_000_000  # the grid's deepest cell: one FASTQ a panel
+M = 1_000_000
+# phase 19: the committed cells that phases 4-18 do not run, sorted
+# (the main path), then the hash backend's
+GRID_SORTED = [("cnidaria", 8 * M), ("hydrozoa", M), ("hydrozoa", 4 * M),
+               ("hydrozoa", 8 * M), ("metazoa", M), ("metazoa", 4 * M),
+               ("metazoa", 8 * M)]
+GRID_HASH = [("cnidaria", 8 * M), ("hydrozoa", M), ("metazoa", M)]
+PANELS = {p: os.path.join(HERE, "sharkmer_tpu_torch", "panels", f"{p}.yaml")
+          for p in SEEDS}
+FASTQS = {p: os.path.join(HERE, "benchmarks", "work", "synth",
+                          f"{p}_synthetic-seed{seed}_{N_READS_MAX}.fastq.gz")
+          for p, seed in SEEDS.items()}
+# phases 4-18: the cnidaria cells
+PANEL, FASTQ = PANELS["cnidaria"], FASTQS["cnidaria"]
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 KERNEL_N = 1 << 27
 PART_ROWS = 1 << 26
@@ -195,6 +230,7 @@ CHUNK_ORACLE = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0",
 K = 19
 INT64_MAX = (1 << 63) - 1
 VARYING_STATS = ("command", "peak_memory_bytes")
+PANEL_SCAN_OUT = 1 << 14  # SortedKmerStore.prefix_scan_many's max_out
 FALLBACK_WARNINGS = ("sPCR device-index build failed", "reach warmup failed")
 
 KERNELS = {
@@ -840,12 +876,14 @@ def instrument(torch, kernels):
     from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
     from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 
+    from sharkmer_tpu_torch.ops import sorted_store
+
     run_log = _RunLog()
     logging.getLogger().addHandler(run_log)
     ctx = types.SimpleNamespace(
         torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
         plain_closures=[], hash_exports=[], shard_exports=[],
-        hash_grows=[], lookup_waves=[], table_calls=[])
+        hash_grows=[], lookup_waves=[], table_calls=[], panel_scans=[])
 
     def counted(cls, name, event):
         """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -888,38 +926,97 @@ def instrument(torch, kernels):
     # on the card the closure must never fall back to its torch loop
     counted(closure, "closure_plain",
             lambda a: ctx.plain_closures.append(1))
+    # the batched primer scan of a partition: its last argument is the
+    # call's max_out, past PANEL_SCAN_OUT on a retry
+    counted(sorted_store, "panel_scan",
+            lambda a: ctx.panel_scans.append(a[-1]))
     return ctx
 
 
-def drive_main_path(ctx, label: str, n_reads: int, extra=(),
-                    fastq: bool = True, oracle: str | None = None):
-    """One CLI run of the cnidaria cell at ``n_reads`` (from the FASTQ,
-    or, with ``fastq=False``, from the checkpoint that ``extra`` names),
-    held to the JAX package's outputs in ``oracle`` (by default the
-    committed cell of ``n_reads``): the same file names, every file
-    byte-identical but ``stats.yaml``, equal but for VARYING_STATS.
-    Returns (the kernels' launch counts and the run's table counters, its
-    stage-walls line)."""
+def oracle_of(panel: str, n_reads: int) -> str:
+    """The JAX package's committed cell of ``panel`` at ``n_reads``."""
+    return os.path.join(HERE, "benchmarks", "work", panel,
+                        f"synthetic-seed{SEEDS[panel]}", str(n_reads))
+
+
+def check_outputs(label: str, out: str, oracle: str, sample: str) -> None:
+    """``out`` holds exactly the files of ``oracle``, one ``stats.yaml``
+    and at least one FASTA among them, each byte-identical but
+    ``stats.yaml``, equal but for VARYING_STATS."""
     import yaml
 
+    stats_name = f"{sample}.stats.yaml"
+    want, got = sorted(os.listdir(oracle)), sorted(os.listdir(out))
+    fasta = [f for f in want if f.endswith(".fasta")]
+    require(got == want and fasta and stats_name in want,
+            f"{label}: output files {got} != {want}")
+    for name in want:
+        if name == stats_name:
+            continue
+        with open(os.path.join(oracle, name), "rb") as a, \
+                open(os.path.join(out, name), "rb") as b:
+            require(a.read() == b.read(), f"{label}: {name} differs")
+    with open(os.path.join(oracle, stats_name)) as a, \
+            open(os.path.join(out, stats_name)) as b:
+        sa, sb = yaml.safe_load(a), yaml.safe_load(b)
+    for key in VARYING_STATS:
+        sa.pop(key), sb.pop(key)
+    require(sa == sb, f"{label}: stats.yaml differs: {sb} != {sa}")
+    others = [f for f in want if f != stats_name and f not in fasta]
+    print(f"{label}: {len(fasta)}/{len(fasta)} FASTA"
+          f"{''.join(', ' + f for f in others)} byte-identical to "
+          f"{os.path.relpath(oracle, HERE)}, stats.yaml equal (but for "
+          f"{', '.join(VARYING_STATS)})", flush=True)
+
+
+def closure_retries(closure_lines) -> list[tuple[int, int]]:
+    """(f_cap, overflow retries) of each closure call, from the debug
+    lines of ``_drive_closure`` (the kept attempt's f_cap): a call
+    starts at F_CAP, grown by F_GROW until it holds min(roots, 4096)
+    roots, and each overflow grows it by F_GROW again."""
+    from sharkmer_tpu_torch.ops.reach import F_CAP, F_GROW
+
+    calls = []
+    for line in closure_lines:
+        roots = int(line.split("reach: ")[1].split(" roots")[0])
+        f_cap = int(line.split("f_cap ")[1].split(",")[0])
+        start = F_CAP
+        while start < min(roots, 4096):
+            start *= F_GROW
+        retries = 0
+        while start * F_GROW ** retries < f_cap:
+            retries += 1
+        calls.append((f_cap, retries))
+    return calls
+
+
+def drive_main_path(ctx, label: str, n_reads: int, extra=(),
+                    fastq: bool = True, oracle: str | None = None,
+                    panel: str = "cnidaria"):
+    """One CLI run of ``panel``'s cell at ``n_reads`` (from the panel's
+    FASTQ, or, with ``fastq=False``, from the checkpoint that ``extra``
+    names), held to the JAX package's outputs in ``oracle`` (by default
+    the committed cell of ``panel`` at ``n_reads``) by ``check_outputs``.
+    Returns (the kernels' launch counts and the run's table counters, its
+    stage-walls line)."""
     from sharkmer_tpu_torch.main import main
 
     torch, kernels, run_log = ctx.torch, ctx.kernels, ctx.run_log
-    sample = f"synthetic-seed0_{n_reads}"
-    oracle = oracle or os.path.join(ORACLES, str(n_reads))
+    sample = f"synthetic-seed{SEEDS[panel]}_{n_reads}"
+    oracle = oracle or oracle_of(panel, n_reads)
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
     argv = ["-s", sample, "-k", str(K), "-t", "8", "-o", out,
-            "--pcr-panel-file", PANEL, *extra]
+            "--pcr-panel-file", PANELS[panel], *extra]
     if fastq:
-        argv += ["-m", str(n_reads), FASTQ]
+        argv += ["-m", str(n_reads), FASTQS[panel]]
     for index in range(torch.cuda.device_count()):  # each card's own peak
         torch.cuda.reset_peak_memory_stats(index)
     n_lines = len(run_log.lines)
     run_log.closures.clear()
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
                    ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
-                   ctx.table_calls):
+                   ctx.table_calls, ctx.panel_scans):
         events.clear()
     for fn in kernels.values():
         fn.launches = 0
@@ -968,28 +1065,16 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     for line in run_log.closures:
         # the kept attempt of each call: roots, iters, n_vis, f_cap, wall
         print(f"{label}: closure call: {line[len('reach: '):]}")
-
-    stats_name = f"{sample}.stats.yaml"
-    want, got = sorted(os.listdir(oracle)), sorted(os.listdir(out))
-    fasta = [f for f in want if f.endswith(".fasta")]
-    require(got == want and len(fasta) == 7 and stats_name in want,
-            f"{label}: output files {got} != {want}")
-    for name in want:
-        if name == stats_name:
-            continue
-        with open(os.path.join(oracle, name), "rb") as a, \
-                open(os.path.join(out, name), "rb") as b:
-            require(a.read() == b.read(), f"{label}: {name} differs")
-    with open(os.path.join(oracle, stats_name)) as a, \
-            open(os.path.join(out, stats_name)) as b:
-        sa, sb = yaml.safe_load(a), yaml.safe_load(b)
-    for key in VARYING_STATS:
-        sa.pop(key), sb.pop(key)
-    require(sa == sb, f"{label}: stats.yaml differs: {sb} != {sa}")
-    others = [f for f in want if f != stats_name and f not in fasta]
-    print(f"{label}: 7/7 FASTA"
-          f"{''.join(', ' + f for f in others)} byte-identical, stats.yaml "
-          f"equal (but for {', '.join(VARYING_STATS)})", flush=True)
+    if run_log.closures:
+        calls = closure_retries(run_log.closures)
+        print(f"{label}: closure calls (f_cap, overflow retries): {calls}; "
+              f"{sum(r for _, r in calls)} retries in all")
+    if ctx.panel_scans:
+        retried = [mo for mo in ctx.panel_scans if mo > PANEL_SCAN_OUT]
+        print(f"{label}: batched primer scans: {len(ctx.panel_scans)} "
+              f"panel_scan calls, {len(retried)} past max_out "
+              f"{PANEL_SCAN_OUT} (retries at {retried})")
+    check_outputs(label, out, oracle, sample)
     return counts, walls
 
 
@@ -1683,6 +1768,48 @@ def closure_times(torch, np, card: str) -> int:
     return 0
 
 
+def tools_phase() -> None:
+    """Phase 20: ``tools/run_grid.py`` on the metazoa 1M cell (its cell
+    held to the committed one; a new result YAML and report), then
+    ``tools/bench.py --quick`` (every gene of its panel recovered); each
+    a subprocess on the card."""
+    results = os.path.join(HERE, "build", "grid", "results")
+    before = set(os.listdir(results)) if os.path.isdir(results) else set()
+    start = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sharkmer_tpu_torch.tools.run_grid",
+         "--panel", "metazoa", "--max-reads", str(M)],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    require(proc.returncode == 0,
+            f"run_grid exited {proc.returncode}: {proc.stderr[-3000:]}")
+    print(f"run_grid: {time.monotonic() - start:.1f} s", flush=True)
+    check_outputs("run_grid metazoa 1M",
+                  os.path.join(HERE, "build", "grid", "work", "metazoa",
+                               "synthetic-seed2", str(M)),
+                  oracle_of("metazoa", M), f"synthetic-seed2_{M}")
+    new = sorted(set(os.listdir(results)) - before)
+    require(any(n.startswith("metazoa_") and n.endswith(".yaml") for n in new)
+            and any(n.startswith("metazoa_") and n.endswith(".md")
+                    for n in new),
+            f"run_grid wrote no result YAML and report: {new}")
+    print(f"run_grid: new in build/grid/results: {new}")
+
+    start = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sharkmer_tpu_torch.tools.bench", "--quick"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    ok, n_genes = bench["spcr_genes_ok"].split("/")
+    require(ok == n_genes and int(n_genes) > 0,
+            f"bench --quick recovered {bench['spcr_genes_ok']} genes")
+    print(f"bench --quick ({time.monotonic() - start:.1f} s): {line}",
+          flush=True)
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "sharkmer_tpu_torch")),
             f"no sharkmer_tpu_torch package beside {__file__}")
@@ -1707,15 +1834,25 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s); using {kind}", flush=True)
-    synth = None
-    if not os.path.exists(FASTQ) and not args:
-        synth = subprocess.Popen([
+    # one child process a missing FASTQ, all at once
+    synth = {} if args else {
+        panel: subprocess.Popen([
             sys.executable, "-c",
             "import sys; from sharkmer_tpu_torch.tools.synth import "
-            "synthesize_panel_fastq as s; "
-            "s(sys.argv[1], sys.argv[2], n_reads=int(sys.argv[3]), seed=0)",
-            PANEL, FASTQ, str(N_READS_MAX),
+            "synthesize_panel_fastq as s; s(sys.argv[1], sys.argv[2], "
+            "n_reads=int(sys.argv[3]), seed=int(sys.argv[4]))",
+            PANELS[panel], FASTQS[panel], str(N_READS_MAX), str(seed),
         ], cwd=HERE)
+        for panel, seed in SEEDS.items() if not os.path.exists(FASTQS[panel])}
+
+    def wait_fastq(panel: str) -> None:
+        start = time.monotonic()
+        child = synth.pop(panel, None)
+        require(child is None or child.wait() == 0,
+                f"the {panel} FASTQ synthesis failed")
+        print(f"FASTQ {os.path.relpath(FASTQS[panel], HERE)} ready "
+              f"({time.monotonic() - start:.2f} s waited)", flush=True)
+
     try:
         if args:
             return closure_times(torch, np, card)
@@ -1748,12 +1885,7 @@ def main() -> int:
                                     key_range_layouts(torch)))
 
         phase("4. main path: 1M reads, cnidaria panel, default drain budget")
-        start = time.monotonic()
-        if synth is not None:
-            require(synth.wait() == 0, "FASTQ synthesis failed")
-            synth = None
-        print(f"FASTQ {os.path.relpath(FASTQ, HERE)} ready "
-              f"({time.monotonic() - start:.2f} s waited)", flush=True)
+        wait_fastq("cnidaria")
         os.makedirs(OUT_DIR, exist_ok=True)
         ctx = instrument(torch, kernels)
         os.environ.pop("SHARKMER_MAX_AGG", None)
@@ -1877,10 +2009,28 @@ def main() -> int:
         if "cards" not in placements:
             print("phase 18: the cross-card part did not run: only one card "
                   "is visible", flush=True)
+
+        phase("19. the offline grid: the 7 committed cells not run above "
+              "(sorted, --mirror auto), then --backend hash")
+        for panel in SEEDS:
+            wait_fastq(panel)
+        for panel, n_reads in GRID_SORTED:
+            torch.cuda.empty_cache()  # the last run's cached blocks
+            label = f"grid_{panel}_{n_reads // M}M"
+            runs[label] = drive_main_path(ctx, label, n_reads, ("-vv",),
+                                          panel=panel)
+        for panel, n_reads in GRID_HASH:
+            torch.cuda.empty_cache()
+            label = f"grid_hash_{panel}_{n_reads // M}M"
+            runs[label] = drive_main_path(ctx, label, n_reads,
+                                          ("--backend", "hash"), panel=panel)
+
+        phase("20. the tools: run_grid on the metazoa 1M cell, bench --quick")
+        tools_phase()
     finally:
-        if synth is not None:
-            synth.kill()
-            synth.wait()
+        for child in synth.values():
+            child.kill()
+            child.wait()
 
     chunked_sorted = ("chunks_sorted_1", f"chunks_sorted_{N_SHARDS}")
     chunked_hash = ("chunks_hash_1", f"chunks_hash_{N_SHARDS}")
@@ -1924,6 +2074,25 @@ def main() -> int:
                 f"ran {got} times, not {(exports, shard_exports)}")
     for label in required["reach_closure"]:
         check_closure_run(runs, label)
+    # phase 19: a ghosted first drain in every sorted run, drain v2 past
+    # 1M reads, the reach closure in each; the hash runs as phase 12
+    for panel, n_reads in GRID_SORTED:
+        label = f"grid_{panel}_{n_reads // M}M"
+        counts = runs[label][0]
+        need = ("run_ends",) + (("run_starts", "stitch_rows")
+                                if n_reads > M else ())
+        for name in need:
+            require(counts[name] >= 1,
+                    f"{name} was not launched in the {label} run")
+        require(not counts["hash_insert"],
+                f"hash_insert was launched in the {label} run")
+        check_closure_run(runs, label)
+    for panel, n_reads in GRID_HASH:
+        label = f"grid_hash_{panel}_{n_reads // M}M"
+        check_hash_run(runs, label, 1)
+        got = (runs[label][0]["hash_exports"], runs[label][0]["shard_exports"])
+        require(got == (1, 0), f"{label}: KmerTable and ShardedKmerTable."
+                f"to_sorted_arrays ran {got} times, not (1, 0)")
     for tag, (_, n_groups) in group_labels.items():
         check_group_runs(runs, tag, n_groups)
 

@@ -33,8 +33,9 @@ COPIES = [
         "pcr/primers.py", "pcr/pruning.py", "pcr/read_filter.py",
         "pcr/spcr.py", "pcr/threading.py", "viewer.py",
     )
-] + [("sharkmer_tpu_torch/tools/synth.py",
-      "scripts/sharkmer_validate/synth.py")]
+] + [(f"sharkmer_tpu_torch/tools/{m}",
+       f"scripts/sharkmer_validate/{os.path.basename(m)}")
+      for m in ("synth.py", "validate/results.py", "validate/report.py")]
 
 # Top-level definitions a copy may change on purpose: the native loader
 # builds its library into the port's build directory, not native/.
@@ -107,6 +108,8 @@ def test_port_imports_no_jax():
         "import sharkmer_tpu_torch.pcr.spcr, sharkmer_tpu_torch.tools.synth\n"
         "import sharkmer_tpu_torch.parallel.sharded_reach\n"
         "import sharkmer_tpu_torch.viewer\n"
+        "import sharkmer_tpu_torch.tools.run_grid, sharkmer_tpu_torch.tools.bench\n"
+        "import sharkmer_tpu_torch.tools.validate.runner\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'sharkmer_tpu.')))\n"
         "assert not bad, bad\n"
