@@ -47,7 +47,8 @@ Phases, each printed on its own lines; every check raises on failure:
    LUT's bits cap (``wide_bucket_table``): a closure from 2 roots, and
    ``probe_rows`` on 4096 of its keys (hits past a bucket's first 32
    rows among them): equal ``n_vis``, ``iters``, ``overflow``, ``done``,
-   sorted log and boundary set, equal probe ids, and median ms per call;
+   sorted log and boundary set, equal probe ids, and median ms per call
+   (``probe_rows`` also its device time alone, from ``torch.profiler``);
    every table's LUTs, as the descriptors point to them, equal to its
    partitions' own;
 4. the main path: the port's CLI (``sharkmer_tpu_torch.main.main``,
@@ -117,7 +118,12 @@ Phases, each printed on its own lines; every check raises on failure:
     ``--mirror device``, and ``--load-table`` of phase 9's checkpoint.
     Where two or more cards are visible, the same again on distinct
     cards (``cuda:0,cuda:1,...``), after the dependent-load latency into
-    a peer's DRAM; otherwise one line says that part did not run;
+    a peer's DRAM, with a check of the cross-card stream ordering: the
+    peer cards' shards cleared, then written back behind a
+    ``torch.cuda._sleep`` on their own streams, while ``hash_lookup``
+    and ``reach_closure`` launch on the first card, which must stay
+    exact against their plain versions; otherwise one line says that
+    part did not run;
 19. the offline grid: the 7 cells of ``benchmarks/work/`` that phases
     4-18 do not run (cnidaria at 8M reads; hydrozoa and metazoa at 1M,
     4M and 8M) on the default main path (``--backend sorted``,
@@ -131,7 +137,15 @@ Phases, each printed on its own lines; every check raises on failure:
     ``build/grid/work/`` held to the committed one, with a result YAML
     and a markdown report new in ``build/grid/results/``; then ``python
     -m sharkmer_tpu_torch.tools.bench --quick``, whose JSON line must
-    report every gene of the panel recovered.
+    report every gene of the panel recovered;
+21. the profilers, each a subprocess: ``tools/ingest_phase.py`` at 2^27
+    keys (the drain path's stages, each drain launching its kernels),
+    then with ``--fastq`` on the 8M cnidaria FASTQ (the host stages of
+    the CLI's ingest, its reads, bases and k-mers those of the committed
+    8M cell); ``tools/cold_start.py`` bare (a fresh process's stages),
+    then ``--cli`` on the 1M cnidaria cell: its outputs held to the
+    committed cell, and its split of the child's wall (before, inside
+    and after ``main()``) summing to that wall within 0.5 s.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -214,6 +228,7 @@ HASH_READS = 1 << 17  # one CLI ingest batch
 HASH_CAP = 1 << 27  # the 1M cell's final hash table
 HASH_SHARDS = 4  # the owner-routed insert and lookup of phase 8
 LOOKUP_WAVE = 4096
+SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep: ~50 ms at the H100's clock
 LOOKUP_MANY = 1 << 20
 CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
 N_SHARDS = "4"  # --n-shards of phases 14-18
@@ -231,6 +246,7 @@ K = 19
 INT64_MAX = (1 << 63) - 1
 VARYING_STATS = ("command", "peak_memory_bytes")
 PANEL_SCAN_OUT = 1 << 14  # SortedKmerStore.prefix_scan_many's max_out
+SPLIT_SLACK_S = 0.5  # cold_start --cli: its parts against the child's wall
 FALLBACK_WARNINGS = ("sPCR device-index build failed", "reach warmup failed")
 
 KERNELS = {
@@ -338,6 +354,30 @@ def compare(torch, name: str, kernel, plain, reps: int, card: str,
           f"{plain_ms:.4f} ms plain{lib_text} on {card}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms}
+
+
+def profiled_ms(torch, fn, kernel: str, reps: int) -> float:
+    """The device time of one launch of the CUDA kernel ``kernel`` alone:
+    ``reps`` calls of ``fn`` (after one untraced call) under
+    ``torch.profiler``, the kernel's summed device time over the launches
+    the trace holds (at most ``reps``: a trace can drop one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [a for a in prof.key_averages() if kernel in a.key]
+    count = sum(a.count for a in hits)
+    us = sum(getattr(a, "self_device_time_total",
+                     getattr(a, "self_cuda_time_total", 0.0)) for a in hits)
+    require(0 < count <= reps and us > 0,
+            f"torch.profiler saw {count} launches of {kernel} ({us} us of "
+            f"device time) in {reps} calls")
+    return us / count / 1e3
 
 
 def byte_bound(n_bytes: int) -> dict:
@@ -611,6 +651,18 @@ def closure_cases(np, fwd) -> dict:
             "retry global": (wide, attempt(3))}
 
 
+def closure_roots(np, roots):
+    """A closure call's ``c0`` on the current card: the distinct
+    ``roots``, padded with EMPTY to ``8 * F_CAP`` keys."""
+    from sharkmer_tpu_torch.ops import reach
+    from sharkmer_tpu_torch.ops.keys import keys_to_device
+
+    c0 = np.full(8 * reach.F_CAP, reach.EMPTY, np.uint64)
+    roots = np.unique(np.asarray(roots, np.uint64))
+    c0[: len(roots)] = roots
+    return keys_to_device(c0, "cuda")
+
+
 def check_luts(torch, name: str, table) -> None:
     """Each partition's LUT as the descriptors point to it: on the
     launching card, equal to the partition's own (a copy of it where the
@@ -624,7 +676,7 @@ def check_luts(torch, name: str, table) -> None:
 
 
 def closure_phase(torch, np, card: str, latency: dict, layouts,
-                  plain: bool = True) -> dict:
+                  plain: bool = True, device_times: bool = False) -> dict:
     """``reach_closure`` against ``closure_plain`` on a 2^26-row table in
     each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable),
     on ``closure_cases`` and a warm start; ``probe_rows`` against
@@ -632,7 +684,10 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
     ``wide_bucket_table``. Each with its byte bound and its latency bound
     (``chain_ms``). ``plain=False`` runs and times the kernels alone
     (``--closure-times``): no plain run, no comparison, no LUT check (so
-    that it also runs on trees older than ``PartTable.luts``)."""
+    that it also runs on trees older than ``PartTable.luts``).
+    ``device_times`` (phase 3) adds ``probe_rows``' device time alone
+    (``profiled_ms``): a profiler session later in the script, after the
+    CLI runs, has traced no kernel of the port."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
@@ -653,12 +708,6 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
             print(f"{name}: LUT copies on {table.device}, each equal to its "
                   f"shard's own: {table.lut_copy_bytes} bytes", flush=True)
     depth, f_cap, f_narrow = reach.DEPTH, reach.F_CAP, reach.F_NARROW
-
-    def c0_of(roots):
-        c0 = np.full(8 * f_cap, reach.EMPTY, np.uint64)
-        roots = np.unique(np.asarray(roots, np.uint64))
-        c0[: len(roots)] = roots
-        return keys_to_device(c0, "cuda")
 
     def run(table, c0, pre_ids, fn, shape):
         return fn(table, c0, pre_ids, CLOSURE_MC, K, *shape)
@@ -742,6 +791,18 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         # one level of probes, all in parallel: the key, the LUT, the
         # bucket rows
         result["latency_bound_ms"] = chain_ms(latency, 1)
+        if not device_times:
+            return result, probe.probe_rows(*args)
+        # the kernel's own device time, without the wrapper's host work
+        result["device_ms"] = profiled_ms(
+            torch, lambda: probe.probe_rows(*args), "probe_rows_kernel", 20)
+        print(f"probe_rows: {label}: device time alone "
+              f"{result['device_ms']:.5f} ms a launch (torch.profiler) vs "
+              f"{result['ms']:.4f} ms timed around the wrapper; chain bound "
+              f"{result['latency_bound_ms']:.5f} ms "
+              f"({result['latency_bound_ms'] / result['device_ms']:.0%} of "
+              f"the device time), byte bound {result['bound_ms']:.5f} ms on "
+              f"{card}", flush=True)
         return result, probe.probe_rows(*args)
 
     cases = closure_cases(np, fwd)
@@ -751,8 +812,8 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         for call, (roots, shape) in cases.items():
             record[f"{call}, {name}"], got[call] = check(
                 f"{name}, {call}: {len(roots)} roots at (depth, f_cap, "
-                f"f_narrow) {shape}", table, c0_of(roots), None, shape,
-                plain_twice=call == "narrow" and name == "1 partition",
+                f"f_narrow) {shape}", table, closure_roots(np, roots), None,
+                shape, plain_twice=call == "narrow" and name == "1 partition",
                 overflow=call == "overflow")
         # a re-prefetch from the narrow call's boundary, warm-started with
         # its interior, as pcr/prefetch.py does
@@ -771,7 +832,7 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         require(int((pre_ids != probe.INF32).sum()) == n_pre > 0,
                 f"probe_rows: not every one of {n_pre} warm-start keys hit")
         record[f"pre, {name}"] = check(f"{name}, warm start", table,
-                                       c0_of(bound), pre_ids,
+                                       closure_roots(np, bound), pre_ids,
                                        (depth, f_cap, f_narrow))[0]
     del tables, keys, counts
     torch.cuda.empty_cache()
@@ -779,7 +840,7 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
     # the first 32 of a bucket, in the closure and in probe_rows
     keys, counts, n_real, fwd = wide_bucket_table(np, torch, K)
     n_k, shape = fwd.shape[0], (WIDE_BUCKET_DEPTH, f_cap, f_narrow)
-    roots = c0_of(fwd[[n_k // 4, 3 * n_k // 4]])
+    roots = closure_roots(np, fwd[[n_k // 4, 3 * n_k // 4]])
     # PRE_W of the table's keys: genome k-mers (counts >= the floor, so
     # hits) and the keys beside them in their 256-key blocks (misses)
     pick = torch.from_numpy(np.sort(np.random.default_rng(9).choice(
@@ -1644,6 +1705,15 @@ def groups_phase(torch, np, card: str, latency: dict, devices,
         print(f"hash_lookup: {n_q}-query wave through the pointer table: "
               f"kernel alone {alone:.5f} ms (a CUDA graph of back-to-back "
               f"launches) on {card}", flush=True)
+        if not one_card:
+            held = late_writes(torch, launch, kern[0], lambda slots: (
+                slots[..., 0].fill_(INT64_MAX), slots[..., 1].zero_()))
+            require(torch.equal(hk.hash_lookup(kern[0], q, K, pointers), got),
+                    "hash_lookup: differs when peer cards write their "
+                    "shards late")
+            print(f"hash_lookup: exact on the {n_q}-query wave while {held} "
+                  f"peer groups' slots were written late on their cards' "
+                  f"streams", flush=True)
     lookup_rec["max_abs_err"] = max(lookup_rec["max_abs_err"],
                                     lookup_rec["many_max_abs_err"])
     del kern, one, batches, kmers, valid, pointers
@@ -1652,8 +1722,67 @@ def groups_phase(torch, np, card: str, latency: dict, devices,
     closures = closure_phase(torch, np, card, latency, {
         tag: lambda keys, counts, n_real: shard_table(
             torch, keys, counts, n_real, CLOSURE_SHARDS, K, devices)})
+    if not one_card:
+        late_closure(torch, np, devices)
     return {f"hash_insert, {tag}": insert_rec,
             f"hash_lookup, {tag}": lookup_rec, **closures}
+
+
+def late_writes(torch, launch, tensors, clear) -> int:
+    """For each of ``tensors`` that lies on a card other than ``launch``:
+    ``clear`` it and wait for that, then queue the restore of its
+    contents on its card's current stream behind ``torch.cuda._sleep``
+    (SLEEP_CYCLES), so that the write lands late. A launch on ``launch``
+    that did not order itself after the peers' streams
+    (``kernels/peer.wait_for_peers``) would read the cleared contents.
+    Returns how many tensors it held back."""
+    from sharkmer_tpu_torch.device import indexed
+
+    held = [(t, t.clone()) for t in tensors
+            if indexed(t.device) != indexed(launch)]
+    require(held, f"no tensor lies on a card other than {launch}")
+    for t, _ in held:
+        clear(t)
+        torch.cuda.synchronize(t.device)
+    for t, saved in held:
+        with torch.cuda.device(t.device):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t.copy_(saved)
+    return len(held)
+
+
+def late_closure(torch, np, devices) -> None:
+    """Phase 18b's stream-ordering check of ``reach_closure``: phase 13's
+    narrow call over the closure table's owner shards on ``devices``,
+    launched on ``devices[0]`` while the shards on the other cards write
+    their counts late (``late_writes``), against ``closure_plain`` on the
+    intact table."""
+    from sharkmer_tpu_torch.kernels import closure
+
+    keys, counts, n_real, fwd = closure_table(np, torch, PART_ROWS, K)
+    table = shard_table(torch, keys, counts, n_real, CLOSURE_SHARDS, K,
+                        devices)
+    del keys, counts
+    roots, shape = closure_cases(np, fwd)["narrow"]
+    with torch.cuda.device(devices[0]):
+        c0 = closure_roots(np, roots)
+    want = closure.closure_plain(table, c0, None, CLOSURE_MC, K, *shape)
+    held = late_writes(torch, devices[0],
+                       [sc.counts1d for sc in table.sidecars],
+                       lambda t: t.zero_())
+    got = closure.reach_closure(table, c0, None, CLOSURE_MC, K, *shape)
+    state = closure.unpack_state(got[2])
+    require(state == closure.unpack_state(want[2])
+            and torch.equal(torch.sort(got[0]).values,
+                            torch.sort(want[0]).values)
+            and torch.equal(torch.unique(got[1]), torch.unique(want[1])),
+            "reach_closure: differs from plain when peer cards write their "
+            "shards late")
+    print(f"reach_closure: exact on the narrow call ({len(roots)} roots, "
+          f"[n_vis, iters, overflow, done] {state}) while {held} shards on "
+          f"peer cards wrote their counts late", flush=True)
+    del table, want, got
+    torch.cuda.empty_cache()
 
 
 def check_hash_run(runs, label: str, n_groups: int) -> None:
@@ -1768,6 +1897,20 @@ def closure_times(torch, np, card: str) -> int:
     return 0
 
 
+def run_tool(name: str, *args: str, timeout: int) -> dict:
+    """``python -m sharkmer_tpu_torch.tools.<name> ARGS`` on the card, its
+    output printed; fails if it fails. Returns its last line's JSON."""
+    start = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"sharkmer_tpu_torch.tools.{name}", *args],
+        cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    print(proc.stdout, end="")
+    require(proc.returncode == 0,
+            f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    print(f"{name}: {time.monotonic() - start:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def tools_phase() -> None:
     """Phase 20: ``tools/run_grid.py`` on the metazoa 1M cell (its cell
     held to the committed one; a new result YAML and report), then
@@ -1795,19 +1938,58 @@ def tools_phase() -> None:
             f"run_grid wrote no result YAML and report: {new}")
     print(f"run_grid: new in build/grid/results: {new}")
 
-    start = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "sharkmer_tpu_torch.tools.bench", "--quick"],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
-    require(proc.returncode == 0,
-            f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
-    line = proc.stdout.strip().splitlines()[-1]
-    bench = json.loads(line)
+    bench = run_tool("bench", "--quick", timeout=600)
     ok, n_genes = bench["spcr_genes_ok"].split("/")
     require(ok == n_genes and int(n_genes) > 0,
             f"bench --quick recovered {bench['spcr_genes_ok']} genes")
-    print(f"bench --quick ({time.monotonic() - start:.1f} s): {line}",
-          flush=True)
+
+
+def profile_phase() -> None:
+    """Phase 21: the port's profilers, each a subprocess on the card.
+    ``tools/ingest_phase.py`` at 2^27 keys (each drain stage must launch
+    its kernels), then over the 8M cnidaria FASTQ at the cell's k (its
+    reads, bases and k-mers those of the committed 8M cell);
+    ``tools/cold_start.py`` bare, then ``--cli`` on the 1M cnidaria cell
+    (its outputs held to the committed cell, the three parts of its
+    split within SPLIT_SLACK_S of the child's wall)."""
+    import yaml
+
+    record = run_tool("ingest_phase", "--width", "27", timeout=300)
+    stages = record["stages"]
+    for label, kernels in (("run_starts (fwd)", ("run_starts",)),
+                           ("ghosted drain", ("run_ends",)),
+                           ("v2 drain", ("run_starts", "stitch_rows"))):
+        launches = next(v["launches"] for key, v in stages.items()
+                        if key.startswith(label))
+        require(all(launches[name] >= 1 for name in kernels),
+                f"ingest_phase: {label} launched {launches}")
+    n_reads = 8 * M
+    fastq = run_tool("ingest_phase", "--fastq", FASTQS["cnidaria"],
+                     "--max-reads", str(n_reads), "--k", str(K),
+                     timeout=600)["fastq"]
+    sample = f"synthetic-seed0_{n_reads}"
+    with open(os.path.join(oracle_of("cnidaria", n_reads),
+                           f"{sample}.stats.yaml")) as f:
+        stats = yaml.safe_load(f)
+    got = (fastq["reads"], fastq["bases"], fastq["kmers"])
+    want = (stats["n_reads_read"], stats["n_bases_read"], stats["n_kmers"])
+    require(got == want, f"ingest_phase --fastq: reads, bases, k-mers {got} "
+            f"vs the committed 8M cell's {want}")
+    print(f"ingest_phase --fastq: reads, bases and k-mers {got} equal the "
+          f"committed 8M cell's", flush=True)
+
+    run_tool("cold_start", timeout=300)
+    sample = f"synthetic-seed0_{M}"
+    out = os.path.join(OUT_DIR, "cold_start_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    split = run_tool("cold_start", "--cli", "-s", sample, "-k", str(K),
+                     "-t", "8", "-o", out, "--pcr-panel-file",
+                     PANELS["cnidaria"], "-m", str(M), FASTQS["cnidaria"],
+                     timeout=300)
+    check_outputs("cold_start --cli", out, oracle_of("cnidaria", M), sample)
+    require(abs(split["sum_s"] - split["wall_s"]) <= SPLIT_SLACK_S,
+            f"cold_start --cli: the parts sum to {split['sum_s']:.3f} s, the "
+            f"child's wall is {split['wall_s']:.3f} s")
 
 
 def main() -> int:
@@ -1882,7 +2064,8 @@ def main() -> int:
               flush=True)
         record = kernel_phase(torch, np, card, kernels)
         record.update(closure_phase(torch, np, card, latency,
-                                    key_range_layouts(torch)))
+                                    key_range_layouts(torch),
+                                    device_times=True))
 
         phase("4. main path: 1M reads, cnidaria panel, default drain budget")
         wait_fastq("cnidaria")
@@ -2007,8 +2190,8 @@ def main() -> int:
                                                  devices, record, runs),
                                  len(devices))
         if "cards" not in placements:
-            print("phase 18: the cross-card part did not run: only one card "
-                  "is visible", flush=True)
+            print("phase 18: the cross-card part (and its stream-ordering "
+                  "check) did not run: only one card is visible", flush=True)
 
         phase("19. the offline grid: the 7 committed cells not run above "
               "(sorted, --mirror auto), then --backend hash")
@@ -2027,6 +2210,10 @@ def main() -> int:
 
         phase("20. the tools: run_grid on the metazoa 1M cell, bench --quick")
         tools_phase()
+
+        phase("21. the profilers: ingest_phase at 2^27 and on the 8M FASTQ, "
+              "cold_start bare and --cli on the 1M cell")
+        profile_phase()
     finally:
         for child in synth.values():
             child.kill()

@@ -110,6 +110,8 @@ def test_port_imports_no_jax():
         "import sharkmer_tpu_torch.viewer\n"
         "import sharkmer_tpu_torch.tools.run_grid, sharkmer_tpu_torch.tools.bench\n"
         "import sharkmer_tpu_torch.tools.validate.runner\n"
+        "import sharkmer_tpu_torch.tools.ingest_phase\n"
+        "import sharkmer_tpu_torch.tools.cold_start\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'sharkmer_tpu.')))\n"
         "assert not bad, bad\n"
