@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 ``python3 chip_smoke.py --closure-times`` runs only phase 3's and 13's
 closure and probe calls, the kernels alone (no plain version, no
-comparison), and ends with a line ``RESULT <JSON>`` of their median
-times: run it from two trees in turns to compare their kernels in one
-call.
+comparison; ``probe_rows`` also its device time alone), and ends with a
+line ``RESULT <JSON>`` of their median times: run it from two trees in
+turns to compare their kernels in one call.
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -43,12 +43,14 @@ Phases, each printed on its own lines; every check raises on failure:
    at the third retry's shape (f_cap 16384, f_narrow 1024: the kernel's
    frontiers in global scratch), and a warm-started call whose ``pre``
    rows come from ``probe_rows`` (held to its plain version at the warm
-   start's 4096 keys); then a table whose buckets hold 256 rows at the
+   start's 4096 keys, also on the table cut into 257 partitions, past
+   the descriptors the kernel copies to shared memory); then a table whose buckets hold 256 rows at the
    LUT's bits cap (``wide_bucket_table``): a closure from 2 roots, and
    ``probe_rows`` on 4096 of its keys (hits past a bucket's first 32
    rows among them): equal ``n_vis``, ``iters``, ``overflow``, ``done``,
    sorted log and boundary set, equal probe ids, and median ms per call
-   (``probe_rows`` also its device time alone, from ``torch.profiler``);
+   (``probe_rows`` also its device time alone, from ``torch.profiler``,
+   beside an empty kernel's on the same grid);
    every table's LUTs, as the descriptors point to them, equal to its
    partitions' own;
 4. the main path: the port's CLI (``sharkmer_tpu_torch.main.main``,
@@ -218,6 +220,9 @@ KERNEL_N = 1 << 27
 PART_ROWS = 1 << 26
 GENOME_BASES = 1 << 20
 CLOSURE_PARTS = 21
+# past csrc/probe_rows.cu's kSmemParts descriptors: probe_rows routes from
+# global memory
+PAST_CAP_PARTS = 257
 CLOSURE_SHARDS = 4  # the owner-routed layout of phase 13
 CLOSURE_MC = 2  # the closures' count floor
 WIDE_BUCKET_BASES = 1 << 14  # the genome of the 256-row-bucket table
@@ -378,6 +383,30 @@ def profiled_ms(torch, fn, kernel: str, reps: int) -> float:
             f"torch.profiler saw {count} launches of {kernel} ({us} us of "
             f"device time) in {reps} calls")
     return us / count / 1e3
+
+
+def probe_floor_ms(torch, n_cand: int, reps: int):
+    """``profiled_ms`` of ``csrc/probe_rows.cu``'s empty kernel on the
+    grid of a ``probe_rows`` launch for ``n_cand`` candidates: the floor
+    of a one-level launch. None where the library has no empty kernel (a
+    tree older than it, run by ``--closure-times``)."""
+    import ctypes
+
+    from sharkmer_tpu_torch.kernels import build
+
+    lib = build.load("probe_rows")
+    if not hasattr(lib, "shk_probe_rows_empty"):
+        return None
+    lib.shk_probe_rows_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.shk_probe_rows_empty.restype = ctypes.c_int
+
+    def launch():
+        rc = lib.shk_probe_rows_empty(
+            n_cand, torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"probe_rows_empty: CUDA launch failed "
+                f"(cudaError {rc})")
+
+    return profiled_ms(torch, launch, "probe_rows_empty_kernel", reps)
 
 
 def byte_bound(n_bytes: int) -> dict:
@@ -680,14 +709,17 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
     """``reach_closure`` against ``closure_plain`` on a 2^26-row table in
     each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable),
     on ``closure_cases`` and a warm start; ``probe_rows`` against
-    ``probe_rows_plain`` at the warm start's PRE_W keys; then both on
-    ``wide_bucket_table``. Each with its byte bound and its latency bound
-    (``chain_ms``). ``plain=False`` runs and times the kernels alone
-    (``--closure-times``): no plain run, no comparison, no LUT check (so
-    that it also runs on trees older than ``PartTable.luts``).
-    ``device_times`` (phase 3) adds ``probe_rows``' device time alone
-    (``profiled_ms``): a profiler session later in the script, after the
-    CLI runs, has traced no kernel of the port."""
+    ``probe_rows_plain`` at the warm start's PRE_W keys (with a key-range
+    layout, also on the table cut into PAST_CAP_PARTS partitions: the
+    kernel's global route); then both on ``wide_bucket_table``. Each with
+    its byte bound and its latency bound (``chain_ms``). ``plain=False``
+    runs and times the kernels alone (``--closure-times``): no plain run,
+    no comparison, no LUT check (so that it also runs on trees older than
+    ``PartTable.luts``). ``device_times`` (phase 3, ``--closure-times``)
+    adds ``probe_rows``' device time alone and that of an empty kernel on
+    its grid (``profiled_ms``, ``probe_floor_ms``): a profiler session
+    later in the script, after the CLI runs, has traced no kernel of the
+    port."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
@@ -779,13 +811,14 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         """``probe_rows`` against ``probe_rows_plain`` on ``cand``, timed
         (kernel ids alone with ``plain=False``)."""
         args = (table, cand, CLOSURE_MC)
-        if not plain:
-            ids = probe.probe_rows(*args)
-            return {"ms": median_ms(torch, lambda: probe.probe_rows(*args),
-                                    20)}, ids
-        result = compare(torch, "probe_rows", lambda: probe.probe_rows(*args),
-                         lambda: probe.probe_rows_plain(*args), 20, card,
-                         label)
+        if plain:
+            result = compare(torch, "probe_rows",
+                             lambda: probe.probe_rows(*args),
+                             lambda: probe.probe_rows_plain(*args), 20, card,
+                             label)
+        else:
+            result = {"ms": median_ms(
+                torch, lambda: probe.probe_rows(*args), 20)}
         result.update(byte_bound(12 * cand.numel() + 48 * len(table.sidecars)
                                  + routed_bytes(torch, table, cand)))
         # one level of probes, all in parallel: the key, the LUT, the
@@ -793,20 +826,25 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         result["latency_bound_ms"] = chain_ms(latency, 1)
         if not device_times:
             return result, probe.probe_rows(*args)
-        # the kernel's own device time, without the wrapper's host work
+        # the kernel's own device time, without the wrapper's host work,
+        # and an empty kernel's on its grid
         result["device_ms"] = profiled_ms(
             torch, lambda: probe.probe_rows(*args), "probe_rows_kernel", 20)
+        result["floor_ms"] = probe_floor_ms(torch, cand.numel(), 20)
+        floor = ("" if result["floor_ms"] is None else
+                 f"; an empty kernel on its grid {result['floor_ms']:.5f} ms")
         print(f"probe_rows: {label}: device time alone "
               f"{result['device_ms']:.5f} ms a launch (torch.profiler) vs "
               f"{result['ms']:.4f} ms timed around the wrapper; chain bound "
               f"{result['latency_bound_ms']:.5f} ms "
               f"({result['latency_bound_ms'] / result['device_ms']:.0%} of "
-              f"the device time), byte bound {result['bound_ms']:.5f} ms on "
-              f"{card}", flush=True)
+              f"the device time), byte bound {result['bound_ms']:.5f} ms"
+              f"{floor} on {card}", flush=True)
         return result, probe.probe_rows(*args)
 
     cases = closure_cases(np, fwd)
     record = {}
+    warm_keys = {}
     for name, table in tables.items():
         got = {}
         for call, (roots, shape) in cases.items():
@@ -827,6 +865,7 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         pre_t = keys_to_device(reach._pad_pre(pre, roots=bound), "cuda")
         record[f"probe_rows, {name}"], pre_ids = check_probe(
             f"{pre_t.numel()} warm-start keys, {name}", table, pre_t)
+        warm_keys[name] = pre_t
         # every warm-start key was visited, so each one hits
         n_pre = int((pre_t != INT64_MAX).sum())
         require(int((pre_ids != probe.INF32).sum()) == n_pre > 0,
@@ -834,7 +873,22 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         record[f"pre, {name}"] = check(f"{name}, warm start", table,
                                        closure_roots(np, bound), pre_ids,
                                        (depth, f_cap, f_narrow))[0]
-    del tables, keys, counts
+    del tables
+    parts = f"{CLOSURE_PARTS} partitions"
+    if parts in layouts:
+        # more partitions than the kernel copies to shared memory: the
+        # route from global memory, on the same warm-start keys
+        table = cut_table(torch, keys, counts, n_real, PAST_CAP_PARTS, K)
+        past = f"{PAST_CAP_PARTS} partitions"
+        record[f"probe_rows, {past}"], ids = check_probe(
+            f"{warm_keys[parts].numel()} warm-start keys, {past}", table,
+            warm_keys[parts])
+        n_pre = int((warm_keys[parts] != INT64_MAX).sum())
+        require(int((ids != probe.INF32).sum()) == n_pre,
+                f"probe_rows, {past}: not every one of {n_pre} warm-start "
+                f"keys hit")
+        del table
+    del keys, counts, warm_keys
     torch.cuda.empty_cache()
     # buckets past 32 rows at the LUT's bits cap: the probe's rows past
     # the first 32 of a bucket, in the closure and in probe_rows
@@ -1891,7 +1945,8 @@ def closure_times(torch, np, card: str) -> int:
     latency = load_latency(torch)
     record = closure_phase(torch, np, card, latency,
                            {**key_range_layouts(torch),
-                            **owner_layouts(torch)}, plain=False)
+                            **owner_layouts(torch)}, plain=False,
+                           device_times=True)
     print(f"card: {card}")
     print("RESULT " + json.dumps(record), flush=True)
     return 0
@@ -2290,19 +2345,27 @@ def main() -> int:
         if name == "probe_rows":
             # a warm start's keys over CLOSURE_PARTS; on one partition and
             # owner-routed over CLOSURE_SHARDS beside it
+            # (phase 3 also the device times alone, and an empty kernel's
+            # on the same grid); past the descriptor cap (the global route)
             one = record["probe_rows, 1 partition"]
             owned = record[f"probe_rows, {shards}"]
+            past = record[f"probe_rows, {PAST_CAP_PARTS} partitions"]
             rec = dict(record[f"probe_rows, {parts}"], **latency,
                        one_part_ms=one["ms"], one_part_plain_ms=one["plain_ms"],
+                       one_part_device_ms=one["device_ms"],
+                       one_part_floor_ms=one["floor_ms"],
                        shards_ms=owned["ms"], shards_plain_ms=owned["plain_ms"],
                        shards_bound_ms=owned["bound_ms"],
                        shards_max_abs_err=owned["max_abs_err"])
+            rec.update({f"past_cap_{key}": past[key] for key in (
+                "ms", "plain_ms", "device_ms", "bound_ms", "max_abs_err")})
             # 4096 keys of the 256-row-bucket table, on each layout
             for layout in ("1 partition", parts, shards):
                 wide = record[f"probe_rows wide bucket, {layout}"]
                 rec.update({f"wide_bucket_{layout.split()[0]}_{key}":
                             wide[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                  "max_abs_err")})
+                                                  "max_abs_err", "device_ms")
+                            if key in wide})
             rec["max_abs_err"] = max(
                 value["max_abs_err"] for label, value in record.items()
                 if label.startswith("probe_rows"))

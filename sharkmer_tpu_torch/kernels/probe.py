@@ -20,8 +20,9 @@ On a CPU tensor the wrapper runs the plain PyTorch version
 the JAX package's unpacked XLA gather probe (``reach.py`` ``lookup``,
 here ``probe_window_plain``), which reads a fixed window of
 ``probe_blocks`` 32-row blocks from the bucket's first block. On a CUDA
-tensor it launches the hand-written kernel in ``csrc/probe_rows.cu`` (a
-warp per candidate scans exactly its bucket rows; see the source) on the
+tensor it launches the hand-written kernel in ``csrc/probe_rows.cu`` (the
+partition descriptors and the route in shared memory, an 8-lane group
+per candidate scanning exactly its bucket rows; see the source) on the
 current stream, or raises. The kernel needs no window width.
 ``probe_rows.launches`` counts the wrapper's kernel launches.
 """
