@@ -9,7 +9,12 @@ Run from the root of a checkout, with no arguments:
 closure and probe calls, the kernels alone (no plain version, no
 comparison; ``probe_rows`` also its device time alone), and ends with a
 line ``RESULT <JSON>`` of their median times: run it from two trees in
-turns to compare their kernels in one call.
+turns to compare their kernels in one call. ``python3 chip_smoke.py
+--chunked`` runs phases 1, 2 and 22 alone (the cnidaria FASTQ, the
+build, the chunked spectra at depth); ``--chunked-cards`` runs only
+phase 22's four-card run and its reference, on four cards or on the
+shard groups that ``SHARKMER_TORCH_DEVICES`` lists (the code path of
+four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``).
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -147,7 +152,24 @@ Phases, each printed on its own lines; every check raises on failure:
     8M cell); ``tools/cold_start.py`` bare (a fresh process's stages),
     then ``--cli`` on the 1M cnidaria cell: its outputs held to the
     committed cell, and its split of the child's wall (before, inside
-    and after ``main()``) summing to that wall within 0.5 s.
+    and after ``main()``) summing to that wall within 0.5 s;
+22. the chunked spectra at depth, each run held to
+    ``chunk_spectra_reference`` (the port's loader and encoding, then
+    ``torch.sort`` and ``torch.unique_consecutive`` folding the chunks
+    in order, no count store): first the reference itself on the first
+    250k reads with 10 chunks, written through the port's writers,
+    byte-identical to the JAX package's ``.histo`` and ``.final.histo``
+    in ``oracles/``; then ``--chunks 10`` on the 8M cnidaria cell,
+    sorted (``--mirror auto``) and ``--backend hash``, and ``--chunks 20
+    --n-shards 4`` on the 1M cell, sorted; where four cards are visible,
+    ``--chunks 10 --n-shards 4`` at 8M with a shard a card. Each run's
+    ``.histo`` and ``.final.histo`` byte-identical to the reference's,
+    its FASTA to the committed cell's, and its ``stats.yaml`` equal to
+    the cell's but for ``command``, ``peak_memory_bytes`` and
+    ``chunks``, with ``n_singleton_kmers`` the reference's final
+    singletons and ``n_multi_kmers`` the k-mers less those; each run
+    prints its stage walls, kernel launches and every card's peak, and,
+    when its outputs differ, the chunks whose spectrum differs.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -158,22 +180,26 @@ read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
 warm starts) must launch in phases 4 and 5 (``run_starts`` also in 14
 and in 17's sorted runs), ``stitch_rows`` in phases 5 and 7,
 ``run_ends`` in every sorted run of phase 19 (its ghosted first drain)
-and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs,
+and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs
+(all three in phase 22's 8M sorted run, ``run_starts`` in its sharded
+runs),
 ``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted), 18
-(sorted) and 19 (sorted) at least once per closure call (the run's
+(sorted), 19 (sorted) and 22 (sorted) at least once per closure call
+(the run's
 ``closures`` sPCR phase), where ``probe_rows`` may launch no more often
 than that, the
 plain closure loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
-12, 15, 16, 17 (hash) and 18 (hash), once per insert of a batch, merge
+12, 15, 16, 17 (hash), 18 (hash) and 22 (hash), once per insert of a
+batch, merge
 and grow of a hash table and device group (one routed launch for all
 shards of a group; also in phase 19's hash runs), ``hash_lookup`` in
 phases 10, 15 and 18 (``--mirror
 device``), once per lookup wave, and none of the sorted store's kernels
 in those hash runs;
 ``KmerTable.to_sorted_arrays`` (the host mirror) runs once in phases 9
-(plus once for the checkpoint), 11 (hash), 12, 17 (hash, 1 shard) and
-19 (hash),
+(plus once for the checkpoint), 11 (hash), 12, 17 (hash, 1 shard), 19
+(hash) and 22 (hash),
 never under ``--mirror device``, and ``ShardedKmerTable``'s once in
 phases 15 (host mirror), 16, 17 (hash, 4 shards) and 18 (load). A
 logged
@@ -248,6 +274,15 @@ CHUNK_READS = 250_000
 CHUNK_ORACLE = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0",
                             f"chunks10_{CHUNK_READS}")
 K = 19
+# phase 22: the chunked runs at depth, each held to chunk_spectra_reference
+# (label, reads, --chunks, further CLI arguments); the four-card run only
+# where four cards are visible (one shard a card)
+CHUNKED_RUNS = [("chunked_sorted_8M", 8 * M, 10, ()),
+                ("chunked_hash_8M", 8 * M, 10, ("--backend", "hash")),
+                ("chunked_shards_1M", M, 20, ("--n-shards", N_SHARDS))]
+CHUNKED_CARDS = ("chunked_cards_8M", 8 * M, 10, ("--n-shards", N_SHARDS))
+READS_PER_TURN = 1000  # the reads a chunk takes in turn (io.rs:355-361)
+HISTO_MAX = 10000  # the CLI's --histo-max default
 INT64_MAX = (1 << 63) - 1
 VARYING_STATS = ("command", "peak_memory_bytes")
 PANEL_SCAN_OUT = 1 << 14  # SortedKmerStore.prefix_scan_many's max_out
@@ -1193,6 +1228,207 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     return counts, walls
 
 
+def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
+                            histo_max: int, device) -> list:
+    """The ``n_chunks`` cumulative spectra of ``--chunks n_chunks`` on the
+    first ``n_reads`` reads of ``fastq`` (0: all of them), computed
+    without the code under test: the port's FASTQ loader
+    (``io/native.py``) and encoding (``ops/encoding.canonical_kmers``),
+    read ``i`` in chunk ``(i // READS_PER_TURN) % n_chunks``, and the
+    chunks folded in order into the prefix's sorted (key, count) arrays
+    on ``device`` by ``torch.sort``, ``torch.unique_consecutive`` and a
+    segment sum. No count store, drain, merge or hash kernel runs.
+    Returns one numpy uint64 histogram a chunk, ``histo_max + 2`` long:
+    bin ``i`` the keys counted ``i`` times, bin ``histo_max + 1`` those
+    counted more often, bin 0 zero."""
+    import numpy as np
+    import torch
+
+    from sharkmer_tpu_torch.io import native
+    from sharkmer_tpu_torch.ops.encoding import canonical_kmers
+
+    device = torch.device(device)
+    require(native.available(), "the native FASTQ loader did not build")
+    raw = [[] for _ in range(n_chunks)]  # each chunk's valid k-mers
+    seen = 0
+    with native.NativeFastqReader(fastq) as reader, \
+            native.PrefetchingBatches(reader, batch_reads=1 << 17,
+                                      depth=3) as batches:
+        for codes, _lens in batches:
+            if n_reads:
+                codes = codes[: n_reads - seen]
+            turn = np.arange(seen, seen + codes.shape[0]) // READS_PER_TURN
+            seen += codes.shape[0]
+            kmers, valid = canonical_kmers(
+                torch.from_numpy(np.ascontiguousarray(codes)).to(device), k)
+            chunk = torch.from_numpy(turn % n_chunks).to(device)
+            for c in range(n_chunks):
+                rows = chunk == c
+                raw[c].append(kmers[rows][valid[rows]])
+            if n_reads and seen >= n_reads:
+                break
+    require(not n_reads or seen == n_reads,
+            f"{fastq} holds {seen} reads, not {n_reads}")
+    keys = torch.empty(0, dtype=torch.int64, device=device)
+    counts = torch.empty(0, dtype=torch.int64, device=device)
+    spectra = []
+    for c in range(n_chunks):
+        new = torch.cat([keys, *raw[c]])
+        raw[c] = None
+        ones = torch.ones(new.shape[0] - keys.shape[0], dtype=torch.int64,
+                          device=device)
+        keys, order = torch.sort(new)
+        del new
+        counts = torch.cat([counts, ones])[order]
+        del order, ones
+        keys, run = torch.unique_consecutive(keys, return_counts=True)
+        # each key's total: the count prefix sum at its run's last row,
+        # less the one at the run before
+        ends = torch.cumsum(run, 0) - 1
+        counts = torch.diff(torch.cumsum(counts, 0)[ends],
+                            prepend=counts.new_zeros(1))
+        # every count is at least 1: bin 0 stays empty
+        histo = torch.bincount(torch.clamp(counts, max=histo_max + 1),
+                               minlength=histo_max + 2)
+        spectra.append(histo.cpu().numpy().astype(np.uint64))
+    return spectra
+
+
+def write_spectra(out: str, sample: str, spectra, k: int,
+                  n_chunks: int) -> None:
+    """``{sample}.histo`` and ``{sample}.final.histo`` of ``spectra`` (of
+    ``--histo-max`` their length less 2) in ``out``, through the port's
+    writers (``io/writers.py``)."""
+    from sharkmer_tpu_torch.io.writers import (write_final_histo,
+                                               write_incremental_histo)
+
+    os.makedirs(out, exist_ok=True)
+    base = os.path.join(out, sample)
+    histo_max = len(spectra[-1]) - 2
+    write_incremental_histo(f"{base}.histo", spectra, histo_max, k, n_chunks)
+    write_final_histo(f"{base}.final.histo", spectra[-1], histo_max, k,
+                      n_chunks)
+
+
+def chunked_oracle(n_reads: int, n_chunks: int, spectra) -> str:
+    """The outputs a ``--chunks n_chunks`` run of the cnidaria cell at
+    ``n_reads`` must write, in a directory of their own: the committed
+    cell's FASTA (the final counts do not depend on the chunks), the
+    reference's ``.histo`` and ``.final.histo``, and the cell's
+    ``stats.yaml`` with ``chunks`` set and the singleton and multi counts
+    of the reference's final spectrum."""
+    import yaml
+
+    sample = f"synthetic-seed0_{n_reads}"
+    cell = oracle_of("cnidaria", n_reads)
+    out = os.path.join(OUT_DIR, f"expected_{n_reads}_chunks{n_chunks}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for name in os.listdir(cell):
+        if name.endswith(".fasta"):
+            shutil.copy(os.path.join(cell, name), out)
+    write_spectra(out, sample, spectra, K, n_chunks)
+    with open(os.path.join(cell, f"{sample}.stats.yaml")) as f:
+        stats = yaml.safe_load(f)
+    singletons = int(spectra[-1][1])
+    stats.update(chunks=n_chunks, n_singleton_kmers=singletons,
+                 n_multi_kmers=stats["n_kmers"] - singletons)
+    with open(os.path.join(out, f"{sample}.stats.yaml"), "w") as f:
+        yaml.safe_dump(stats, f, sort_keys=False)
+    return out
+
+
+def spectra_diff(out: str, sample: str, spectra) -> list[int]:
+    """The chunks (1-based) whose column of ``out``'s ``.histo`` differs
+    from the reference's spectrum; every chunk where the file is
+    missing or has another shape."""
+    path = os.path.join(out, f"{sample}.histo")
+    everything = list(range(1, len(spectra) + 1))
+    if not os.path.exists(path):
+        return everything
+    with open(path) as f:
+        rows = [line.split("\t") for line in f.read().splitlines()[2:]]
+    if len(rows) != HISTO_MAX + 1 or any(len(r) != len(spectra) + 1
+                                         for r in rows):
+        return everything
+    return [c + 1 for c, want in enumerate(spectra)
+            if [int(r[c + 1]) for r in rows] != want[1:].tolist()]
+
+
+def chunked_reference_check(torch) -> None:
+    """Phase 22 (a): the reference on the first CHUNK_READS reads with 10
+    chunks, written through the port's writers, byte-identical to the
+    JAX package's ``.histo`` and ``.final.histo`` in CHUNK_ORACLE."""
+    sample = f"synthetic-seed0_{CHUNK_READS}"
+    start = time.monotonic()
+    spectra = chunk_spectra_reference(FASTQ, CHUNK_READS, 10, K, HISTO_MAX,
+                                      "cuda")
+    out = os.path.join(OUT_DIR, "reference_250k")
+    shutil.rmtree(out, ignore_errors=True)
+    write_spectra(out, sample, spectra, K, 10)
+    for suffix in (".histo", ".final.histo"):
+        with open(os.path.join(CHUNK_ORACLE, sample + suffix), "rb") as a, \
+                open(os.path.join(out, sample + suffix), "rb") as b:
+            require(a.read() == b.read(), f"the reference's {suffix} differs "
+                    f"from {os.path.relpath(CHUNK_ORACLE, HERE)}'s")
+    print(f"reference, {CHUNK_READS} reads, 10 chunks: .histo and "
+          f".final.histo byte-identical to "
+          f"{os.path.relpath(CHUNK_ORACLE, HERE)} "
+          f"({time.monotonic() - start:.3f} s)", flush=True)
+
+
+def chunked_phase(ctx, runs: dict, n_cards: int,
+                  cards_only: bool = False) -> None:
+    """Phase 22: the chunked spectra at depth. (a)
+    ``chunked_reference_check``. (b, c) Each run of CHUNKED_RUNS (and, on
+    four cards or more, CHUNKED_CARDS: one shard a card) through
+    ``drive_main_path``, held to ``chunked_oracle``; when its outputs
+    differ, the chunks whose spectrum differs are printed first. Each
+    reference's wall and each run's every card's peak are printed. With
+    ``cards_only``, CHUNKED_CARDS alone: on four cards, or on the shard
+    groups that SHARKMER_TORCH_DEVICES lists."""
+    torch = ctx.torch
+    if cards_only:
+        require(n_cards >= 4 or os.environ.get(DEVICES_ENV),
+                f"{CHUNKED_CARDS[0]} needs four cards or {DEVICES_ENV}")
+        todo = [CHUNKED_CARDS]
+    else:
+        chunked_reference_check(torch)
+        todo = CHUNKED_RUNS + ([CHUNKED_CARDS] if n_cards >= 4 else [])
+    oracles = {}
+    for label, n_reads, n_chunks, extra in todo:
+        if (n_reads, n_chunks) not in oracles:
+            torch.cuda.empty_cache()
+            start = time.monotonic()
+            spectra = chunk_spectra_reference(FASTQ, n_reads, n_chunks, K,
+                                              HISTO_MAX, "cuda")
+            print(f"reference, {n_reads} reads, {n_chunks} chunks: "
+                  f"{time.monotonic() - start:.3f} s, "
+                  f"{int(spectra[-1][1:].sum())} distinct k-mers, "
+                  f"{int(spectra[-1][1])} singletons", flush=True)
+            oracles[n_reads, n_chunks] = (
+                spectra, chunked_oracle(n_reads, n_chunks, spectra))
+            torch.cuda.empty_cache()
+        spectra, oracle = oracles[n_reads, n_chunks]
+        try:
+            runs[label] = drive_main_path(
+                ctx, label, n_reads, ("--chunks", str(n_chunks), *extra),
+                oracle=oracle)
+        except RuntimeError:
+            differ = spectra_diff(os.path.join(OUT_DIR, label),
+                                  f"synthetic-seed0_{n_reads}", spectra)
+            print(f"{label}: the chunks whose spectrum differs from the "
+                  f"reference's: {differ}", flush=True)
+            raise
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(n_cards)]
+        print(f"{label}: every card's torch.cuda.max_memory_allocated(): "
+              f"{peaks} bytes", flush=True)
+        torch.cuda.empty_cache()
+    if n_cards < 4 and not cards_only:
+        print(f"phase 22: the four-card run ({CHUNKED_CARDS[0]}) did not "
+              f"run: {n_cards} card(s) visible", flush=True)
+
+
 def run_scan_phase(torch, np, card: str, kernels) -> dict:
     """``run_ends`` and ``run_starts`` against their plain versions and
     ``torch.searchsorted`` (exact), with median times: at 2^27 on
@@ -1895,6 +2131,35 @@ def check_group_runs(runs, tag: str, n_groups: int) -> None:
                 f"{load['shard_exports']}, not 0 / 1")
 
 
+def check_chunked_runs(runs) -> None:
+    """Phase 22's runs: the single sorted store's chunk stores and master
+    drain (``run_ends`` for each ghosted first drain, ``run_starts`` and
+    ``stitch_rows`` for drain v2) and the sharded stores aggregate
+    (``run_starts``), none of them on the hash kernels, and each runs
+    its closures on ``reach_closure`` and its warm starts on
+    ``probe_rows`` (two on this data); the hash run as
+    ``check_hash_run``, its host mirror exported once."""
+    for label in runs:
+        if not label.startswith("chunked_") or label == "chunked_hash_8M":
+            continue
+        counts = runs[label][0]
+        need = (("run_starts", "probe_rows")
+                if "shards" in label or "cards" in label
+                else ("run_ends", "run_starts", "stitch_rows", "probe_rows"))
+        for name in need:
+            require(counts[name] >= 1,
+                    f"{name} was not launched in the {label} run")
+        require(not counts["hash_insert"],
+                f"hash_insert was launched in the {label} run")
+        check_closure_run(runs, label)
+    if "chunked_hash_8M" in runs:
+        check_hash_run(runs, "chunked_hash_8M", 1)
+        got = (runs["chunked_hash_8M"][0]["hash_exports"],
+               runs["chunked_hash_8M"][0]["shard_exports"])
+        require(got == (1, 0), f"chunked_hash_8M: KmerTable and ShardedKmer"
+                f"Table.to_sorted_arrays ran {got} times, not (1, 0)")
+
+
 def peer_latencies(torch, cards, card: str, latency: dict) -> dict:
     """``peer_latency`` from ``cards[0]`` into each other card, printed
     beside the card's own DRAM latency."""
@@ -2054,8 +2319,11 @@ def main() -> int:
 
     require(torch.cuda.is_available(), "torch sees no CUDA device")
     args = sys.argv[1:]
-    require(args in ([], ["--closure-times"]),
-            f"unknown arguments {args}: none, or --closure-times")
+    require(args in ([], ["--closure-times"], ["--chunked"],
+                     ["--chunked-cards"]),
+            f"unknown arguments {args}: none, --closure-times, --chunked or "
+            f"--chunked-cards")
+    chunked_only = args in (["--chunked"], ["--chunked-cards"])
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -2072,7 +2340,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s); using {kind}", flush=True)
     # one child process a missing FASTQ, all at once
-    synth = {} if args else {
+    synth = {} if args == ["--closure-times"] else {
         panel: subprocess.Popen([
             sys.executable, "-c",
             "import sys; from sharkmer_tpu_torch.tools.synth import "
@@ -2080,7 +2348,9 @@ def main() -> int:
             "n_reads=int(sys.argv[3]), seed=int(sys.argv[4]))",
             PANELS[panel], FASTQS[panel], str(N_READS_MAX), str(seed),
         ], cwd=HERE)
-        for panel, seed in SEEDS.items() if not os.path.exists(FASTQS[panel])}
+        for panel, seed in SEEDS.items()
+        if not os.path.exists(FASTQS[panel])
+        and not (chunked_only and panel != "cnidaria")}
 
     def wait_fastq(panel: str) -> None:
         start = time.monotonic()
@@ -2091,7 +2361,7 @@ def main() -> int:
               f"({time.monotonic() - start:.2f} s waited)", flush=True)
 
     try:
-        if args:
+        if args == ["--closure-times"]:
             return closure_times(torch, np, card)
         phase("2. build")
         start = time.monotonic()
@@ -2111,6 +2381,19 @@ def main() -> int:
                    "reach_closure": closure.reach_closure,
                    "hash_insert": hash_kernels.hash_insert,
                    "hash_lookup": hash_kernels.hash_lookup}
+        if chunked_only:
+            wait_fastq("cnidaria")
+            os.makedirs(OUT_DIR, exist_ok=True)
+            ctx = instrument(torch, kernels)
+            os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
+            phase(f"22. chunked spectra at depth (alone: {args[0]})")
+            runs = {}
+            chunked_phase(ctx, runs, torch.cuda.device_count(),
+                          cards_only=args == ["--chunked-cards"])
+            check_chunked_runs(runs)
+            print(f"chip_smoke --chunked wall: "
+                  f"{time.monotonic() - t_start:.1f} s; phase 22 passed")
+            return 0
 
         phase("3. kernels vs plain PyTorch at the main path's shapes")
         latency = load_latency(torch)
@@ -2269,6 +2552,13 @@ def main() -> int:
         phase("21. the profilers: ingest_phase at 2^27 and on the 8M FASTQ, "
               "cold_start bare and --cli on the 1M cell")
         profile_phase()
+
+        phase(f"22. chunked spectra at depth: the reference against "
+              f"{os.path.relpath(CHUNK_ORACLE, HERE)}, then --chunks 10 at "
+              f"8M reads (sorted, hash), --chunks 20 --n-shards {N_SHARDS} "
+              f"at 1M, and on four cards --chunks 10 --n-shards {N_SHARDS} "
+              f"at 8M")
+        chunked_phase(ctx, runs, torch.cuda.device_count())
     finally:
         for child in synth.values():
             child.kill()
@@ -2337,6 +2627,7 @@ def main() -> int:
                 f"to_sorted_arrays ran {got} times, not (1, 0)")
     for tag, (_, n_groups) in group_labels.items():
         check_group_runs(runs, tag, n_groups)
+    check_chunked_runs(runs)
 
     parts = f"{CLOSURE_PARTS} partitions"
     shards = f"{CLOSURE_SHARDS} shards"

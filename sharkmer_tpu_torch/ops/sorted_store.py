@@ -573,14 +573,18 @@ class SortedKmerStore:
             new = _Part(nk, nc, mn, part.first_key, n_real=mn)
             self.parts[p_idx] = new
             return new
-        # overfull: split at the budget midpoint. Both merge inputs hold
-        # <= W uniques, so mn <= 2W and each half fits the budget.
-        if merged_w < 2 * W:
-            mk, mc = _pad_to(mk, mc, 2 * W)
-        lk, lc = mk[:W].clone(), mc[:W].clone()
-        rk, rc_ = mk[W : 2 * W].clone(), mc[W : 2 * W].clone()
-        right = _Part(rk, rc_, mn - W, int(rk[0]), n_real=mn - W)
-        self.parts[p_idx] = _Part(lk, lc, W, part.first_key, n_real=W)
+        # overfull: split the merged rows in half, each half at the
+        # smallest power-of-two width that holds it. Both merge inputs hold
+        # <= W uniques, so mn <= 2W and each half fits the budget. (The JAX
+        # package keeps W rows on the left and gives the rest a W-wide
+        # partition: a full left half splits again at its next merge, and
+        # many small merges, as in a chunked consolidation, leave a master
+        # of mostly empty W-wide partitions.)
+        half = (mn + 1) // 2
+        lk, lc = _slice_run(mk, mc, 0, half, _next_pow2(half))
+        rk, rc_ = _slice_run(mk, mc, half, mn - half, _next_pow2(mn - half))
+        right = _Part(rk, rc_, mn - half, int(rk[0]), n_real=mn - half)
+        self.parts[p_idx] = _Part(lk, lc, half, part.first_key, n_real=half)
         self.parts.insert(p_idx + 1, right)
         return right
 

@@ -64,7 +64,7 @@ def _case_depth_capped_pre(monkeypatch, with_jax=True):
 
 
 def _case_multi_partition(monkeypatch, with_jax=True):
-    monkeypatch.setenv("SHARKMER_MAX_AGG", str(1 << 10))  # tiny partitions
+    monkeypatch.setenv("SHARKMER_MAX_AGG", str(1 << 9))  # tiny partitions
     genome, (jstore, tstore) = _genome_stores(
         first_reads=3, n_bases=800, n_reads=300, read_len=70, seeds=(6, 7),
         with_jax=with_jax)

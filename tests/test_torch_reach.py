@@ -106,7 +106,7 @@ def test_reach_depth_capped_and_warm_start_match_jax(genome_stores):
 
 
 def test_reach_multi_partition_matches_jax(monkeypatch):
-    monkeypatch.setenv("SHARKMER_MAX_AGG", str(1 << 10))  # tiny partitions
+    monkeypatch.setenv("SHARKMER_MAX_AGG", str(1 << 9))  # tiny partitions
     genome = random_genome(800, seed=6)
     jstore, tstore = _stores(_codes(genome, 300, 70, seed=7), 11,
                              first_reads=3)
