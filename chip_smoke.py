@@ -14,7 +14,9 @@ turns to compare their kernels in one call. ``python3 chip_smoke.py
 build, the chunked spectra at depth); ``--chunked-cards`` runs only
 phase 22's four-card run and its reference, on four cards or on the
 shard groups that ``SHARKMER_TORCH_DEVICES`` lists (the code path of
-four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``).
+four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``). ``--long-k`` runs
+phases 1, 2 and 23 alone (k=31); ``--entries`` phases 1, 2, phase 4's
+run and phase 24 (the record-stream entries).
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -169,7 +171,30 @@ Phases, each printed on its own lines; every check raises on failure:
     ``chunks``, with ``n_singleton_kmers`` the reference's final
     singletons and ``n_multi_kmers`` the k-mers less those; each run
     prints its stage walls, kernel launches and every card's peak, and,
-    when its outputs differ, the chunks whose spectrum differs.
+    when its outputs differ, the chunks whose spectrum differs;
+23. k=31, past the packed count field (the key/count compaction, no
+    drain v2): ``reach_closure`` (narrow and wide roots, each also warm
+    started), ``probe_rows``, ``hash_insert`` and the directional
+    ``hash_lookup`` against their plain versions on k=31 data; then
+    ``-k 31 --chunks 10`` on the first 250k reads, sorted and hash,
+    byte-identical to the JAX package's k=31 oracle in ``oracles/``;
+    then at 8M reads sorted and hash ``--chunks 1``, and sorted and
+    hash ``--chunks 10``: every ``.histo`` and ``.final.histo``
+    byte-identical to ``chunk_spectra_reference``'s at k=31, the FASTA
+    byte-identical across the four (past ``pcr/counts.py``'s
+    MIRROR_MAX_UNIQUE keys the hash table looks up each extension wave on
+    the card instead of building the host mirror), ``stats.yaml`` equal
+    across them but for ``command``, ``peak_memory_bytes`` and
+    ``chunks``, with the reference's k-mer counts; then at 1M reads
+    ``--chunks 1``, with ``--mirror full`` (the host mirror) and with
+    ``--n-shards 4``, held the same way;
+24. the 1M cnidaria cell through the record-stream entries, each
+    byte-identical to the committed cell: stdin (``sys.stdin`` holding
+    the gzip stream of the 8M FASTQ, ``-m 1000000``), ``--paired R1
+    R2`` (R1 the first 1M reads at even positions, R2 those at odd ones,
+    written into ``build/chip_smoke/``) and two gzip files of 500k reads
+    through the native loader; each launches phase 4's kernels and
+    prints its ingest wall beside phase 4's.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -179,18 +204,23 @@ Each kernel's launch count is reset just before each main-path run and
 read just after it: ``run_ends``, ``run_starts`` and ``probe_rows`` (the
 warm starts) must launch in phases 4 and 5 (``run_starts`` also in 14
 and in 17's sorted runs), ``stitch_rows`` in phases 5 and 7,
-``run_ends`` in every sorted run of phase 19 (its ghosted first drain)
+``stitch_rows`` in no run of phase 23 (``run_ends``, ``run_starts``
+there as ``check_long_k_runs`` says), phase 4's kernels in each run of
+phase 24, ``run_ends`` in every sorted run of phase 19 (its ghosted
+first drain)
 and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs
 (all three in phase 22's 8M sorted run, ``run_starts`` in its sharded
 runs),
 ``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted), 18
-(sorted), 19 (sorted) and 22 (sorted) at least once per closure call
+(sorted), 19 (sorted), 22 (sorted), 23 (sorted, but ``--mirror full``)
+and 24 at least once per closure call
 (the run's
 ``closures`` sPCR phase), where ``probe_rows`` may launch no more often
 than that, the
 plain closure loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
-12, 15, 16, 17 (hash), 18 (hash) and 22 (hash), once per insert of a
+12, 15, 16, 17 (hash), 18 (hash), 22 (hash) and 23 (hash), once per
+insert of a
 batch, merge
 and grow of a hash table and device group (one routed launch for all
 shards of a group; also in phase 19's hash runs), ``hash_lookup`` in
@@ -223,6 +253,7 @@ import sys
 import time
 import types
 
+T_START = time.monotonic()
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the offline grid (benchmarks/benchmark_offline.yaml): each panel's seed
 SEEDS = {"cnidaria": 0, "hydrozoa": 1, "metazoa": 2}
@@ -281,6 +312,26 @@ CHUNKED_RUNS = [("chunked_sorted_8M", 8 * M, 10, ()),
                 ("chunked_hash_8M", 8 * M, 10, ("--backend", "hash")),
                 ("chunked_shards_1M", M, 20, ("--n-shards", N_SHARDS))]
 CHUNKED_CARDS = ("chunked_cards_8M", 8 * M, 10, ("--n-shards", N_SHARDS))
+# phase 23: k past the packed count field (k >= 23: the key/count
+# compaction, no drain v2) at k = 31, the upstream 18S test's k
+LONG_K = 31
+LONG_K_ORACLE = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0",
+                             "k31_chunks10_250000")
+LONG_K_ROWS = 1 << 21  # the k=31 closure table (3/4 of it keys)
+LONG_K_PARTS = 4  # its key-range partitions
+# the runs of (b) at 8M reads and (c) at 1M (label, --chunks, further CLI
+# arguments), held to the reference's spectra; the first run of each
+# depth gives the rest their FASTA and stats.yaml. --mirror full runs at
+# 1M: at 8M it took 36.4 s of the script's 900 s
+LONG_K_RUNS = {8 * M: [("k31_sorted_8M", 1, ()),
+                       ("k31_hash_8M", 1, ("--backend", "hash")),
+                       ("k31_chunked_sorted_8M", 10, ()),
+                       ("k31_chunked_hash_8M", 10, ("--backend", "hash"))],
+               M: [("k31_1M", 1, ()),
+                   ("k31_mirror_full_1M", 1, ("--mirror", "full")),
+                   ("k31_shards_1M", 1, ("--n-shards", N_SHARDS))]}
+# phase 24: the record-stream entries on the 1M cell; inputs in OUT_DIR
+ENTRY_FILES = ("R1", "R2", "part1", "part2")
 READS_PER_TURN = 1000  # the reads a chunk takes in turn (io.rs:355-361)
 HISTO_MAX = 10000  # the CLI's --histo-max default
 INT64_MAX = (1 << 63) - 1
@@ -316,7 +367,8 @@ def require(cond, msg: str) -> None:
 
 
 def phase(title: str) -> None:
-    print(f"== {title}", flush=True)
+    """A phase's heading, with the seconds since the script started."""
+    print(f"== {title} [{time.monotonic() - T_START:.1f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -1142,13 +1194,15 @@ def closure_retries(closure_lines) -> list[tuple[int, int]]:
 
 def drive_main_path(ctx, label: str, n_reads: int, extra=(),
                     fastq: bool = True, oracle: str | None = None,
-                    panel: str = "cnidaria"):
-    """One CLI run of ``panel``'s cell at ``n_reads`` (from the panel's
-    FASTQ, or, with ``fastq=False``, from the checkpoint that ``extra``
-    names), held to the JAX package's outputs in ``oracle`` (by default
-    the committed cell of ``panel`` at ``n_reads``) by ``check_outputs``.
-    Returns (the kernels' launch counts and the run's table counters, its
-    stage-walls line)."""
+                    panel: str = "cnidaria", k: int = K, before_check=None):
+    """One CLI run of ``panel``'s cell at ``n_reads`` and ``-k k`` (from the
+    panel's FASTQ, or, with ``fastq=False``, from the checkpoint, files or
+    stdin that ``extra`` names), held to the outputs in ``oracle`` (by
+    default the JAX package's committed cell of ``panel`` at ``n_reads``)
+    by ``check_outputs``; ``before_check(out, sample)``, where given, runs
+    first (it may write ``oracle``). Prints every card's peak. Returns (the
+    kernels' launch counts and the run's table counters, its stage-walls
+    line)."""
     from sharkmer_tpu_torch.main import main
 
     torch, kernels, run_log = ctx.torch, ctx.kernels, ctx.run_log
@@ -1156,7 +1210,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     oracle = oracle or oracle_of(panel, n_reads)
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
-    argv = ["-s", sample, "-k", str(K), "-t", "8", "-o", out,
+    argv = ["-s", sample, "-k", str(k), "-t", "8", "-o", out,
             "--pcr-panel-file", PANELS[panel], *extra]
     if fastq:
         argv += ["-m", str(n_reads), FASTQS[panel]]
@@ -1185,6 +1239,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     counts["closure_calls"] = closure_calls(lines)
     counts["hash_exports"] = len(ctx.hash_exports)
     counts["shard_exports"] = len(ctx.shard_exports)
+    counts["mirror_builds"] = len(ctx.mirror_builds)
     # the hash tables' calls that each launch hash_insert once, and the
     # lookup waves that each launch hash_lookup once
     counts["table_calls"] = len(ctx.table_calls)
@@ -1194,8 +1249,10 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     for line in lines:
         if "sPCR phases:" in line:
             print(f"{label}: {line}")
-    print(f"{label}: torch.cuda.max_memory_allocated() "
-          f"{torch.cuda.max_memory_allocated()} bytes")
+    peaks = [torch.cuda.max_memory_allocated(i)
+             for i in range(torch.cuda.device_count())]
+    print(f"{label}: every card's torch.cuda.max_memory_allocated(): "
+          f"{peaks} bytes")
     print(f"{label}: host-mirror builds (to_sorted_arrays calls) "
           f"{len(ctx.mirror_builds)} sorted store, "
           f"{len(ctx.hash_exports)} hash table, "
@@ -1224,6 +1281,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
         print(f"{label}: batched primer scans: {len(ctx.panel_scans)} "
               f"panel_scan calls, {len(retried)} past max_out "
               f"{PANEL_SCAN_OUT} (retries at {retried})")
+    if before_check is not None:
+        before_check(out, sample)
     check_outputs(label, out, oracle, sample)
     return counts, walls
 
@@ -1238,9 +1297,9 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
     chunks folded in order into the prefix's sorted (key, count) arrays
     on ``device`` by ``torch.sort``, ``torch.unique_consecutive`` and a
     segment sum. No count store, drain, merge or hash kernel runs.
-    Returns one numpy uint64 histogram a chunk, ``histo_max + 2`` long:
+    Returns (one numpy uint64 histogram a chunk, ``histo_max + 2`` long:
     bin ``i`` the keys counted ``i`` times, bin ``histo_max + 1`` those
-    counted more often, bin 0 zero."""
+    counted more often, bin 0 zero; the valid k-mers of all reads)."""
     import numpy as np
     import torch
 
@@ -1250,7 +1309,7 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
     device = torch.device(device)
     require(native.available(), "the native FASTQ loader did not build")
     raw = [[] for _ in range(n_chunks)]  # each chunk's valid k-mers
-    seen = 0
+    seen = n_kmers = 0
     with native.NativeFastqReader(fastq) as reader, \
             native.PrefetchingBatches(reader, batch_reads=1 << 17,
                                       depth=3) as batches:
@@ -1262,6 +1321,7 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
             kmers, valid = canonical_kmers(
                 torch.from_numpy(np.ascontiguousarray(codes)).to(device), k)
             chunk = torch.from_numpy(turn % n_chunks).to(device)
+            n_kmers += int(valid.sum())
             for c in range(n_chunks):
                 rows = chunk == c
                 raw[c].append(kmers[rows][valid[rows]])
@@ -1291,7 +1351,7 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
         histo = torch.bincount(torch.clamp(counts, max=histo_max + 1),
                                minlength=histo_max + 2)
         spectra.append(histo.cpu().numpy().astype(np.uint64))
-    return spectra
+    return spectra, n_kmers
 
 
 def write_spectra(out: str, sample: str, spectra, k: int,
@@ -1361,8 +1421,8 @@ def chunked_reference_check(torch) -> None:
     JAX package's ``.histo`` and ``.final.histo`` in CHUNK_ORACLE."""
     sample = f"synthetic-seed0_{CHUNK_READS}"
     start = time.monotonic()
-    spectra = chunk_spectra_reference(FASTQ, CHUNK_READS, 10, K, HISTO_MAX,
-                                      "cuda")
+    spectra, _ = chunk_spectra_reference(FASTQ, CHUNK_READS, 10, K,
+                                         HISTO_MAX, "cuda")
     out = os.path.join(OUT_DIR, "reference_250k")
     shutil.rmtree(out, ignore_errors=True)
     write_spectra(out, sample, spectra, K, 10)
@@ -1400,8 +1460,8 @@ def chunked_phase(ctx, runs: dict, n_cards: int,
         if (n_reads, n_chunks) not in oracles:
             torch.cuda.empty_cache()
             start = time.monotonic()
-            spectra = chunk_spectra_reference(FASTQ, n_reads, n_chunks, K,
-                                              HISTO_MAX, "cuda")
+            spectra, _ = chunk_spectra_reference(FASTQ, n_reads, n_chunks,
+                                                 K, HISTO_MAX, "cuda")
             print(f"reference, {n_reads} reads, {n_chunks} chunks: "
                   f"{time.monotonic() - start:.3f} s, "
                   f"{int(spectra[-1][1:].sum())} distinct k-mers, "
@@ -1420,13 +1480,344 @@ def chunked_phase(ctx, runs: dict, n_cards: int,
             print(f"{label}: the chunks whose spectrum differs from the "
                   f"reference's: {differ}", flush=True)
             raise
-        peaks = [torch.cuda.max_memory_allocated(i) for i in range(n_cards)]
-        print(f"{label}: every card's torch.cuda.max_memory_allocated(): "
-              f"{peaks} bytes", flush=True)
         torch.cuda.empty_cache()
     if n_cards < 4 and not cards_only:
         print(f"phase 22: the four-card run ({CHUNKED_CARDS[0]}) did not "
               f"run: {n_cards} card(s) visible", flush=True)
+
+
+def long_k_kernels(torch, np, card: str) -> dict:
+    """Phase 23 (0): the kernels whose k-dependent code first runs at
+    k = 31 (62-bit neighbour masks, a revcomp shift of 2) against their
+    plain versions on the card. ``reach_closure`` on a LONG_K_ROWS-row
+    k=31 ``closure_table``: the narrow roots of ``closure_cases`` on one
+    partition, its wide roots on LONG_K_PARTS key-range partitions, and a
+    warm start whose ``pre`` rows come from ``probe_rows`` (held to its
+    plain version too); ``hash_insert`` of the k=31 k-mers of the FASTQ's
+    first HASH_READS reads into a fresh table, and the directional
+    ``hash_lookup`` (k = 31) of their reverse complements and as many
+    random keys. Returns ``{name: {max_abs_err, ms, plain_ms}}``."""
+    from sharkmer_tpu_torch.kernels import closure, probe
+    from sharkmer_tpu_torch.kernels import hash as hk
+    from sharkmer_tpu_torch.ops import reach
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+    from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
+
+    k = LONG_K
+    keys, counts, n_real, fwd = closure_table(np, torch, LONG_K_ROWS, k)
+    tables = {"1 partition": probe.PartTable(
+                  [reach.build_sidecar(keys, counts, k)], [0]),
+              f"{LONG_K_PARTS} partitions": cut_table(
+                  torch, keys, counts, n_real, LONG_K_PARTS, k)}
+    cases = closure_cases(np, fwd)
+    record = {}
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    def check_closure(key, label, table, c0, pre_ids, shape):
+        """Kernel against plain on one call; a call from roots (no
+        ``pre_ids``) must walk past half its depth."""
+        args = (table, c0, pre_ids, CLOSURE_MC, k, *shape)
+        plain_ms, want = timed(lambda: closure.closure_plain(*args))
+        ms, got = timed(lambda: closure.reach_closure(*args))
+        gs, ws = closure.unpack_state(got[2]), closure.unpack_state(want[2])
+        g_log, w_log = (torch.sort(x[0]).values for x in (got, want))
+        g_b, w_b = (torch.unique(x[1][x[1] != INT64_MAX]) for x in (got, want))
+        require(gs == ws and torch.equal(g_log, w_log)
+                and torch.equal(g_b, w_b) and not gs[2]
+                and (pre_ids is not None or gs[1] > shape[0] // 2),
+                f"reach_closure at k={k}, {label}: [n_vis, iters, overflow, "
+                f"done] {gs} vs plain {ws}, or the logs or boundaries differ")
+        print(f"reach_closure at k={k}: exact on {label}: [n_vis, iters, "
+              f"overflow, done] {gs}, {int(g_b.numel())} boundary keys; "
+              f"{ms:.4f} ms vs {plain_ms:.4f} ms plain on {card}", flush=True)
+        record[f"reach_closure {key}"] = {"max_abs_err": 0, "ms": ms,
+                                          "plain_ms": plain_ms}
+        return got, gs
+
+    for call, name in (("narrow", "1 partition"),
+                       ("wide", f"{LONG_K_PARTS} partitions")):
+        roots, shape = cases[call]
+        table = tables[name]
+        got, gs = check_closure(call, f"{name}, {call}: {len(roots)} roots",
+                                table, closure_roots(np, roots), None, shape)
+        # a re-prefetch from the boundary, warm-started with the interior
+        visited, _ = reach._gather_rows(table,
+                                        torch.sort(got[0]).values[: gs[0]])
+        bound = keys_to_numpy(got[1])
+        bound = bound[bound != reach.EMPTY]
+        pre = np.setdiff1d(keys_to_numpy(visited), bound)
+        pre_t = keys_to_device(reach._pad_pre(pre, roots=bound), "cuda")
+        ids = probe.probe_rows(table, pre_t, CLOSURE_MC)
+        want_ids = probe.probe_rows_plain(table, pre_t, CLOSURE_MC)
+        require(torch.equal(ids, want_ids),
+                f"probe_rows at k={k}, {name}: ids differ from plain")
+        record[f"probe_rows {call} warm"] = {"max_abs_err": 0}
+        check_closure(f"{call} warm",
+                      f"{name}, {call} warm start: {bound.size} roots, "
+                      f"{pre.size} pre keys", table,
+                      closure_roots(np, bound[:8 * reach.F_CAP]), ids, shape)
+    del tables, keys, counts
+    torch.cuda.empty_cache()
+
+    kmers, n_valid = first_batch_kmers(torch, np, k)
+    kern = (hk.new_slots((HASH_CAP,), "cuda"),
+            torch.zeros(1, dtype=torch.int64, device="cuda"))
+    plain = (hk.new_slots((HASH_CAP,), "cuda"),
+             torch.zeros(1, dtype=torch.int64, device="cuda"))
+    ms, _ = timed(lambda: hk.hash_insert(*kern, kmers))
+    plain_ms, _ = timed(lambda: hk.insert_plain(*plain, kmers))
+    err, distinct = same_rows(torch, "hash_insert", kern, plain,
+                              f"the k={k} batch")
+    total = int(hk.as_u32(hk.slot_counts(kern[0])).sum())
+    require(total == n_valid, f"hash_insert at k={k}: n_total {total} != "
+            f"{n_valid}")
+    record["hash_insert"] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms}
+    print(f"hash_insert at k={k}: exact on {HASH_READS} reads' {n_valid} "
+          f"valid k-mers, {distinct} keys; {ms:.4f} ms vs {plain_ms:.4f} ms "
+          f"plain on {card}", flush=True)
+    live, _ = table_rows(torch, kern[0])
+    rng = np.random.default_rng(31)
+    queries = torch.cat([
+        revcomp(live[: LOOKUP_MANY // 2], k),
+        torch.from_numpy(rng.integers(0, 1 << (2 * k), LOOKUP_MANY // 2,
+                                      dtype=np.int64)).cuda()]).contiguous()
+    ms, got = timed(lambda: hk.hash_lookup(kern[0], queries, k))
+    plain_ms, want = timed(lambda: hk.lookup_plain(kern[0], queries, k))
+    require(torch.equal(got, want),
+            f"hash_lookup at k={k}: counts differ from plain")
+    require(bool((got[: LOOKUP_MANY // 2] != 0).all()),
+            f"hash_lookup at k={k}: a table key's reverse complement missed")
+    record["hash_lookup"] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+    print(f"hash_lookup at k={k}: exact on {queries.numel()} directional "
+          f"queries; {ms:.4f} ms vs {plain_ms:.4f} ms plain on {card}",
+          flush=True)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return record
+
+
+def reference_dirs(out: str, sample: str, spectra, n_kmers: int, k: int,
+                   dirs: dict) -> None:
+    """The expected outputs of the k=31 runs at one depth, from the first
+    run's output directory ``out``: its ``stats.yaml`` must hold the
+    reference's ``n_kmers``, ``n_singleton_kmers`` (final bin 1) and
+    ``n_multi_kmers`` (``n_kmers`` less those); then each directory of
+    ``dirs`` (``--chunks`` N -> path) gets the reference's ``.histo`` and
+    ``.final.histo`` for N chunks (the final spectrum alone for one), the
+    run's FASTA, and its ``stats.yaml`` with ``chunks`` N."""
+    import yaml
+
+    with open(os.path.join(out, f"{sample}.stats.yaml")) as f:
+        stats = yaml.safe_load(f)
+    singletons = int(spectra[-1][1])
+    want = {"n_kmers": n_kmers, "n_singleton_kmers": singletons,
+            "n_multi_kmers": n_kmers - singletons}
+    got = {key: stats.get(key) for key in want}
+    require(got == want, f"{out}: stats.yaml's counts {got} are not the "
+            f"reference's {want}")
+    fasta = [f for f in os.listdir(out) if f.endswith(".fasta")]
+    require(fasta, f"{out}: no FASTA")
+    for n_chunks, path in dirs.items():
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+        for name in fasta:
+            shutil.copy(os.path.join(out, name), path)
+        write_spectra(path, sample, spectra if n_chunks > 1 else spectra[-1:],
+                      k, n_chunks)
+        with open(os.path.join(path, f"{sample}.stats.yaml"), "w") as f:
+            yaml.safe_dump(dict(stats, chunks=n_chunks), f, sort_keys=False)
+
+
+def long_k_phase(ctx, np, runs: dict, card: str) -> dict:
+    """Phase 23: k = 31, where no count fits beside a key. (0)
+    ``long_k_kernels``. (a) ``--chunks 10`` on the first CHUNK_READS reads,
+    sorted and ``--backend hash``, each byte-identical to the JAX
+    package's LONG_K_ORACLE. (b) LONG_K_RUNS at 8M reads: every ``.histo``
+    and ``.final.histo`` byte-identical to ``chunk_spectra_reference``'s
+    (10 chunks; its last spectrum is the whole run's), FASTA
+    byte-identical across the runs (the store with the reach closure, the
+    hash kernels with ``hash_lookup`` a wave, since the table's ~2.6e8
+    keys pass MIRROR_MAX_UNIQUE and no host mirror is built, and the
+    chunk merges of both) and ``stats.yaml`` equal but for ``command``,
+    ``peak_memory_bytes`` and ``chunks``, its k-mer counts the
+    reference's. (c) The same at 1M reads, where ``--mirror full``
+    builds the host mirror and ``--chunks 1 --n-shards 4`` runs the
+    sharded store. When a run's outputs differ, the chunks whose
+    spectrum differs are printed first. Returns ``long_k_kernels``'
+    record."""
+    from sharkmer_tpu_torch.pcr.counts import MIRROR_MAX_UNIQUE
+
+    torch = ctx.torch
+    record = long_k_kernels(torch, np, card)
+    for backend in ("sorted", "hash"):
+        label = f"k31_chunks_{backend}_250k"
+        runs[label] = drive_main_path(
+            ctx, label, CHUNK_READS, ("--chunks", "10", "--backend", backend),
+            oracle=LONG_K_ORACLE, k=LONG_K)
+        torch.cuda.empty_cache()
+    got = (runs["k31_chunks_hash_250k"][0]["hash_exports"],
+           runs["k31_chunks_hash_250k"][0]["shard_exports"])
+    require(got == (1, 0), f"k31_chunks_hash_250k: KmerTable and "
+            f"ShardedKmerTable.to_sorted_arrays ran {got} times, not (1, 0)")
+    for n_reads, todo in LONG_K_RUNS.items():
+        n_chunks = max(c for _, c, _ in todo)
+        start = time.monotonic()
+        spectra, n_kmers = chunk_spectra_reference(
+            FASTQ, n_reads, n_chunks, LONG_K, HISTO_MAX, "cuda")
+        print(f"reference, {n_reads} reads, k={LONG_K}, {n_chunks} chunks: "
+              f"{time.monotonic() - start:.3f} s, {n_kmers} k-mers, "
+              f"{int(spectra[-1][1:].sum())} distinct, "
+              f"{int(spectra[-1][1])} singletons", flush=True)
+        torch.cuda.empty_cache()
+        sample = f"synthetic-seed0_{n_reads}"
+        dirs = {c: os.path.join(OUT_DIR, f"expected_k31_{n_reads}_chunks{c}")
+                for _, c, _ in todo}
+        for i, (label, chunks, extra) in enumerate(todo):
+            first = (lambda out, sample: reference_dirs(
+                out, sample, spectra, n_kmers, LONG_K, dirs)) if i == 0 \
+                else None
+            try:
+                runs[label] = drive_main_path(
+                    ctx, label, n_reads, ("--chunks", str(chunks), *extra),
+                    oracle=dirs[chunks], k=LONG_K, before_check=first)
+            except RuntimeError:
+                want = spectra if chunks > 1 else spectra[-1:]
+                differ = spectra_diff(os.path.join(OUT_DIR, label), sample,
+                                      want)
+                print(f"{label}: the chunks whose spectrum differs from the "
+                      f"reference's: {differ}", flush=True)
+                raise
+            torch.cuda.empty_cache()
+        # past MIRROR_MAX_UNIQUE keys (pcr/counts.py) neither the hash
+        # table's --mirror auto nor --mirror full builds the host mirror:
+        # each extension wave is a lookup on the card instead
+        distinct = int(spectra[-1][1:].sum())
+        mirrored = distinct <= MIRROR_MAX_UNIQUE
+        how = ("the host mirror" if mirrored
+               else "a lookup on the card a wave, no host mirror")
+        for label, _, extra in todo:
+            counts = runs[label][0]
+            if "--backend" in extra:  # host mirror builds, lookup waves
+                got = (counts["hash_exports"], counts["lookup_waves"] > 0)
+                want = (int(mirrored), not mirrored)
+            elif "--mirror" in extra:
+                got, want = counts["mirror_builds"], int(mirrored)
+            else:
+                continue
+            require(got == want, f"{label}: {got}, not {want}, for {distinct} "
+                    f"keys against MIRROR_MAX_UNIQUE {MIRROR_MAX_UNIQUE}")
+            print(f"{label}: {distinct} keys: {how} (MIRROR_MAX_UNIQUE "
+                  f"{MIRROR_MAX_UNIQUE})", flush=True)
+    return record
+
+
+def check_long_k_runs(runs) -> None:
+    """Phase 23's runs beside ``required_launches``: ``stitch_rows`` never
+    (no count field beside a k=31 key: no drain v2); each hash run as
+    ``check_hash_run`` (its host mirror or lookups as ``long_k_phase``
+    checks); each sorted run no hash kernel. (The unsharded 1M runs
+    launch no ``run_starts``: their k-mers fill one ghosted drain.)"""
+    for label in (label for label in runs if label.startswith("k31_")):
+        counts = runs[label][0]
+        require(counts["stitch_rows"] == 0,
+                f"stitch_rows was launched {counts['stitch_rows']} times in "
+                f"the {label} run")
+        if "hash" in label:
+            check_hash_run(runs, label, 1)
+            continue
+        require(not counts["hash_insert"],
+                f"hash_insert was launched in the {label} run")
+
+
+class _Stdin:
+    """``sys.stdin`` as the CLI reads it: a binary ``buffer``, not a
+    terminal."""
+
+    def __init__(self, stream):
+        self.buffer = stream
+
+    def isatty(self) -> bool:
+        return False
+
+
+def entry_inputs() -> dict:
+    """Phase 24's inputs in OUT_DIR from the first M reads of the cnidaria
+    FASTQ (gzip, level 1): R1 the reads at even positions and R2 those at
+    odd ones (so that ``--paired`` takes them back in the file's order),
+    part1 and part2 the first and second half."""
+    import gzip
+
+    paths = {name: os.path.join(OUT_DIR, f"entries_{name}.fastq.gz")
+             for name in ENTRY_FILES}
+    outs = {name: gzip.open(path, "wb", compresslevel=1)
+            for name, path in paths.items()}
+    try:
+        with gzip.open(FASTQ, "rb") as src:
+            lines = []
+            for i in range(M):
+                lines.append(b"".join(next(src) for _ in range(4)))
+                if len(lines) == 10_000 or i == M - 1:
+                    base = i + 1 - len(lines)
+                    outs["R1"].write(b"".join(lines[(-base) % 2 :: 2]))
+                    outs["R2"].write(b"".join(lines[1 - base % 2 :: 2]))
+                    cut = min(max(M // 2 - base, 0), len(lines))
+                    outs["part1"].write(b"".join(lines[:cut]))
+                    outs["part2"].write(b"".join(lines[cut:]))
+                    lines = []
+    finally:
+        for f in outs.values():
+            f.close()
+    return paths
+
+
+def entries_phase(ctx, runs: dict) -> None:
+    """Phase 24: the 1M cnidaria cell through the record-stream entries,
+    each byte-identical to the committed cell: from stdin (the gzip stream
+    of the 8M FASTQ in ``sys.stdin``, ``-m`` 1M), ``--paired R1 R2``, and
+    two gzip files through the native loader. Each must launch phase 4's
+    kernels (``required_launches``) and no hash kernel; each prints its
+    ingest wall beside phase 4's."""
+    import gzip
+
+    start = time.monotonic()
+    paths = entry_inputs()
+    names = ", ".join(os.path.relpath(p, HERE) for p in paths.values())
+    print(f"entry inputs {names}: {time.monotonic() - start:.3f} s",
+          flush=True)
+    stdin = sys.stdin
+    sys.stdin = _Stdin(gzip.open(FASTQ, "rb"))
+    try:
+        runs["entry_stdin"] = drive_main_path(ctx, "entry_stdin", M,
+                                              ("-m", str(M)), fastq=False)
+    finally:
+        sys.stdin.buffer.close()
+        sys.stdin = stdin
+    runs["entry_paired"] = drive_main_path(
+        ctx, "entry_paired", M, ("--paired", paths["R1"], paths["R2"]),
+        fastq=False)
+    runs["entry_two_files"] = drive_main_path(
+        ctx, "entry_two_files", M, (paths["part1"], paths["part2"]),
+        fastq=False)
+
+    def ingest(label):
+        return float(runs[label][1].split("ingest ")[1].split(" s")[0])
+
+    for label in ("entry_stdin", "entry_paired", "entry_two_files"):
+        counts = runs[label][0]
+        for name in ("hash_insert", "hash_lookup"):
+            require(not counts[name], f"{name} was launched in the {label} "
+                    f"run")
+        print(f"{label}: ingest {ingest(label):.3f} s vs "
+              f"{ingest('default'):.3f} s through the native loader (phase 4)",
+              flush=True)
 
 
 def run_scan_phase(torch, np, card: str, kernels) -> dict:
@@ -1506,10 +1897,11 @@ def kernel_phase(torch, np, card: str, kernels) -> dict:
     return record
 
 
-def first_batch_kmers(torch, np):
-    """The port's canonical k-mers of the FASTQ's first HASH_READS reads,
-    as one ingest batch of the CLI hands them to the table (flat, with
-    the sentinels of invalid windows), and the count of valid ones."""
+def first_batch_kmers(torch, np, k: int = K):
+    """The port's canonical ``k``-mers of the FASTQ's first HASH_READS
+    reads, as one ingest batch of the CLI hands them to the table (flat,
+    with the sentinels of invalid windows), and the count of valid
+    ones."""
     from sharkmer_tpu_torch.io import native
     from sharkmer_tpu_torch.ops.encoding import canonical_kmers
 
@@ -1519,7 +1911,7 @@ def first_batch_kmers(torch, np):
     require(codes.shape[0] == HASH_READS,
             f"read {codes.shape[0]} of {HASH_READS} reads in one batch")
     kmers, valid = canonical_kmers(
-        torch.from_numpy(np.ascontiguousarray(codes)).cuda(), K)
+        torch.from_numpy(np.ascontiguousarray(codes)).cuda(), k)
     return kmers.reshape(-1).contiguous(), int(valid.sum())
 
 
@@ -2312,6 +2704,48 @@ def profile_phase() -> None:
             f"child's wall is {split['wall_s']:.3f} s")
 
 
+def required_launches() -> dict:
+    """Each kernel and the runs that must launch it at least once."""
+    chunked_sorted = ("chunks_sorted_1", f"chunks_sorted_{N_SHARDS}")
+    chunked_hash = ("chunks_hash_1", f"chunks_hash_{N_SHARDS}")
+    # phase 23 (and stitch_rows in none of its runs: check_long_k_runs),
+    # phase 24 (phase 4's kernels)
+    k31_drains = ("k31_chunks_sorted_250k", "k31_sorted_8M",
+                  "k31_chunked_sorted_8M")
+    k31_closures = ("k31_chunks_sorted_250k", "k31_sorted_8M",
+                    "k31_chunked_sorted_8M", "k31_1M", "k31_shards_1M")
+    k31_hash = ("k31_chunks_hash_250k", "k31_hash_8M", "k31_chunked_hash_8M")
+    entries = ("entry_stdin", "entry_paired", "entry_two_files")
+    return {"run_ends": ("default", "max_agg_2^24", *k31_drains, "k31_1M",
+                         "k31_mirror_full_1M", *entries),
+            "run_starts": ("default", "max_agg_2^24", "shards",
+                           *chunked_sorted, *k31_drains, "k31_shards_1M",
+                           *entries),
+            "probe_rows": ("default", "max_agg_2^24", *entries),
+            "stitch_rows": ("max_agg_2^24", "4M"),
+            "reach_closure": ("default", "max_agg_2^24", "4M",
+                              "load_sorted", "shards", *chunked_sorted,
+                              *k31_closures, *entries),
+            "hash_insert": ("hash", "load_hash", "hash_4M",
+                            "shards_hash", "shards_hash_device",
+                            "shards_load", *chunked_hash, *k31_hash),
+            "hash_lookup": ("hash_device", "shards_hash_device")}
+
+
+def check_required(runs, present_only: bool = False) -> None:
+    """``required_launches`` on ``runs``, and ``check_closure_run`` on its
+    ``reach_closure`` runs; with ``present_only`` (a phase run alone) only
+    on the runs that ran."""
+    for name, labels in required_launches().items():
+        for label in labels:
+            if present_only and label not in runs:
+                continue
+            require(runs[label][0][name] >= 1,
+                    f"{name} was not launched in the {label} run")
+            if name == "reach_closure":
+                check_closure_run(runs, label)
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "sharkmer_tpu_torch")),
             f"no sharkmer_tpu_torch package beside {__file__}")
@@ -2320,10 +2754,13 @@ def main() -> int:
     require(torch.cuda.is_available(), "torch sees no CUDA device")
     args = sys.argv[1:]
     require(args in ([], ["--closure-times"], ["--chunked"],
-                     ["--chunked-cards"]),
-            f"unknown arguments {args}: none, --closure-times, --chunked or "
-            f"--chunked-cards")
+                     ["--chunked-cards"], ["--long-k"], ["--entries"]),
+            f"unknown arguments {args}: none, --closure-times, --chunked, "
+            f"--chunked-cards, --long-k or --entries")
+    # the options that run one phase after phases 1 and 2 (and, for
+    # --entries, phase 4's run, its ingest wall the one to compare with)
     chunked_only = args in (["--chunked"], ["--chunked-cards"])
+    alone = chunked_only or args in (["--long-k"], ["--entries"])
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -2332,7 +2769,6 @@ def main() -> int:
     from sharkmer_tpu_torch.kernels import build, closure, probe, run_scan, stitch
     from sharkmer_tpu_torch.kernels import hash as hash_kernels
 
-    t_start = time.monotonic()
     phase("1. card")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2350,7 +2786,7 @@ def main() -> int:
         ], cwd=HERE)
         for panel, seed in SEEDS.items()
         if not os.path.exists(FASTQS[panel])
-        and not (chunked_only and panel != "cnidaria")}
+        and not (alone and panel != "cnidaria")}
 
     def wait_fastq(panel: str) -> None:
         start = time.monotonic()
@@ -2392,7 +2828,26 @@ def main() -> int:
                           cards_only=args == ["--chunked-cards"])
             check_chunked_runs(runs)
             print(f"chip_smoke --chunked wall: "
-                  f"{time.monotonic() - t_start:.1f} s; phase 22 passed")
+                  f"{time.monotonic() - T_START:.1f} s; phase 22 passed")
+            return 0
+        if alone:
+            wait_fastq("cnidaria")
+            os.makedirs(OUT_DIR, exist_ok=True)
+            ctx = instrument(torch, kernels)
+            os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
+            runs = {}
+            if args == ["--long-k"]:
+                phase(f"23. k={LONG_K} (alone: --long-k)")
+                long_k_phase(ctx, np, runs, card)
+                check_long_k_runs(runs)
+            else:
+                phase("4. main path: 1M reads, cnidaria panel (for --entries)")
+                runs["default"] = drive_main_path(ctx, "default", M)
+                phase("24. the record-stream entries (alone: --entries)")
+                entries_phase(ctx, runs)
+            check_required(runs, present_only=True)
+            print(f"chip_smoke {args[0]} wall: "
+                  f"{time.monotonic() - T_START:.1f} s; passed")
             return 0
 
         phase("3. kernels vs plain PyTorch at the main path's shapes")
@@ -2559,28 +3014,21 @@ def main() -> int:
               f"at 1M, and on four cards --chunks 10 --n-shards {N_SHARDS} "
               f"at 8M")
         chunked_phase(ctx, runs, torch.cuda.device_count())
+
+        phase(f"23. k={LONG_K}: the kernels against plain, --chunks 10 on "
+              f"{CHUNK_READS} reads against "
+              f"{os.path.relpath(LONG_K_ORACLE, HERE)}, four runs at 8M "
+              f"reads and three at 1M against the reference")
+        record["k31"] = long_k_phase(ctx, np, runs, card)
+
+        phase("24. the record-stream entries: stdin, --paired, two files")
+        entries_phase(ctx, runs)
     finally:
         for child in synth.values():
             child.kill()
             child.wait()
 
-    chunked_sorted = ("chunks_sorted_1", f"chunks_sorted_{N_SHARDS}")
-    chunked_hash = ("chunks_hash_1", f"chunks_hash_{N_SHARDS}")
-    required = {"run_ends": ("default", "max_agg_2^24"),
-                "run_starts": ("default", "max_agg_2^24", "shards",
-                               *chunked_sorted),
-                "probe_rows": ("default", "max_agg_2^24"),
-                "stitch_rows": ("max_agg_2^24", "4M"),
-                "reach_closure": ("default", "max_agg_2^24", "4M",
-                                  "load_sorted", "shards", *chunked_sorted),
-                "hash_insert": ("hash", "load_hash", "hash_4M",
-                                "shards_hash", "shards_hash_device",
-                                "shards_load", *chunked_hash),
-                "hash_lookup": ("hash_device", "shards_hash_device")}
-    for name, labels in required.items():
-        for label in labels:
-            require(runs[label][0][name] >= 1,
-                    f"{name} was not launched in the {label} run")
+    check_required(runs)
     # phases 14-17 place their N_SHARDS shards by default: one group on
     # one card, a group a card on the first min(N_SHARDS, cards) cards
     default_groups = len(shard_devices(int(N_SHARDS), "cuda"))
@@ -2604,8 +3052,6 @@ def main() -> int:
         require(got == (exports, shard_exports),
                 f"{label}: KmerTable and ShardedKmerTable.to_sorted_arrays "
                 f"ran {got} times, not {(exports, shard_exports)}")
-    for label in required["reach_closure"]:
-        check_closure_run(runs, label)
     # phase 19: a ghosted first drain in every sorted run, drain v2 past
     # 1M reads, the reach closure in each; the hash runs as phase 12
     for panel, n_reads in GRID_SORTED:
@@ -2628,6 +3074,7 @@ def main() -> int:
     for tag, (_, n_groups) in group_labels.items():
         check_group_runs(runs, tag, n_groups)
     check_chunked_runs(runs)
+    check_long_k_runs(runs)
 
     parts = f"{CLOSURE_PARTS} partitions"
     shards = f"{CLOSURE_SHARDS} shards"
@@ -2691,6 +3138,12 @@ def main() -> int:
                                            "wide bucket"))
         else:
             rec = record[name]
+        # phase 23: the kernel at k=31 (k31_[call_]<field>)
+        for key, value in record["k31"].items():
+            if key.split()[0] == name:
+                call = "_".join(key.split()[1:])
+                rec.update({f"k31_{call + '_' if call else ''}{field}": v
+                            for field, v in value.items()})
         # phase 18: the same kernel on the shards of each placement
         for tag, (label, _) in group_labels.items():
             if name in ("hash_insert", "hash_lookup"):
@@ -2722,7 +3175,7 @@ def main() -> int:
             "launches": sum(counts[name] for counts, _ in runs.values()),
             **rec,
         })
-    print(f"chip_smoke wall: {time.monotonic() - t_start:.1f} s")
+    print(f"chip_smoke wall: {time.monotonic() - T_START:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ import os
 
 import numpy as np
 import pytest
+import yaml
 
 from sharkmer_tpu.main import main as jax_main
 from sharkmer_tpu.ops.sorted_store import SortedKmerStore as JaxStore
@@ -108,8 +109,8 @@ def test_chunk_spectra_equal_reference(tmp_path, monkeypatch, fastq,
                                        jax_histos, chunks, backend):
     want = jax_histos(chunks)
     cs = _chip_smoke()
-    spectra = cs.chunk_spectra_reference(fastq, N_READS, chunks, K,
-                                         HISTO_MAX, "cpu")
+    spectra, n_kmers = cs.chunk_spectra_reference(fastq, N_READS, chunks, K,
+                                                  HISTO_MAX, "cpu")
     assert len(spectra) == chunks
     # the tail bin is in use, and no chunk's spectrum is lost
     assert spectra[-1][HISTO_MAX + 1] > 0
@@ -124,6 +125,9 @@ def test_chunk_spectra_equal_reference(tmp_path, monkeypatch, fastq,
     out = tmp_path / "torch"
     assert _histos(torch_main, out, chunks, fastq, "--backend",
                    backend) == want
+    # the reference's valid k-mers are the ones the CLI counted
+    stats = yaml.safe_load((out / f"{SAMPLE}.stats.yaml").read_text())
+    assert n_kmers == stats["n_kmers"] > 0
 
 
 def test_consolidation_keeps_the_master_dense():
