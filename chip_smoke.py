@@ -16,7 +16,8 @@ phase 22's four-card run and its reference, on four cards or on the
 shard groups that ``SHARKMER_TORCH_DEVICES`` lists (the code path of
 four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``). ``--long-k`` runs
 phases 1, 2 and 23 alone (k=31); ``--entries`` phases 1, 2, phase 4's
-run and phase 24 (the record-stream entries).
+run and phase 24 (the record-stream entries); ``--panels`` phases 1, 2
+and 25 (the built-in panels).
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -27,7 +28,9 @@ Phases, each printed on its own lines; every check raises on failure:
    its own (``tools/synth.py``); cnidaria's is ready by phase 4, whose
    runs read its first N reads (``-m``: ``synth.py`` writes 250k-read
    slabs, so they are the reads of the JAX package's cells), the other
-   two by phase 19;
+   two by phase 19; phase 25's start at phase 4 (insecta's 8M reads,
+   seed 7; 1M reads of angiospermae, bacteria, c_elegans, human and
+   teleostei, seeds 3, 4, 5, 6 and 8);
 2. build every CUDA source in ``sharkmer_tpu_torch/csrc`` (one nvcc
    each, all at once, sm_90a);
 3. the card's dependent-load latency through L2 and from DRAM
@@ -192,9 +195,22 @@ Phases, each printed on its own lines; every check raises on failure:
     byte-identical to the committed cell: stdin (``sys.stdin`` holding
     the gzip stream of the 8M FASTQ, ``-m 1000000``), ``--paired R1
     R2`` (R1 the first 1M reads at even positions, R2 those at odd ones,
-    written into ``build/chip_smoke/``) and two gzip files of 500k reads
-    through the native loader; each launches phase 4's kernels and
-    prints its ingest wall beside phase 4's.
+    written into ``build/chip_smoke/``), two gzip files of 500k reads
+    through the native loader, and the FASTQ with ``--validate-every
+    1000``; each launches phase 4's kernels and prints its ingest wall
+    beside phase 4's;
+25. the six built-in panels the grid does not run (angiospermae,
+    bacteria, c_elegans, human, insecta, teleostei) by name,
+    ``--pcr-panel NAME``, each on its own synthetic FASTQ: the first
+    250k reads sorted (``--mirror auto``) and ``--backend hash``, each
+    byte-identical to the panel's JAX oracle in ``oracles/<panel>/``;
+    1M reads sorted (insecta also 8M: its batched primer scan 2^20
+    wide), held to the amplicons ``tools/synth.py`` embedded: every
+    gene the oracle amplified amplified, with a product inside an
+    embedded amplicon (up to 1% substitutions); insecta's 1M run again
+    with ``--mirror full`` and ``--backend hash``, byte-identical to its
+    sorted run. Each run prints its ``panel_scan`` widths and retries,
+    closure calls and retries, and genes amplified.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -212,8 +228,9 @@ and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs
 (all three in phase 22's 8M sorted run, ``run_starts`` in its sharded
 runs),
 ``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted), 18
-(sorted), 19 (sorted), 22 (sorted), 23 (sorted, but ``--mirror full``)
-and 24 at least once per closure call
+(sorted), 19 (sorted), 22 (sorted), 23 (sorted, but ``--mirror full``),
+24 and 25 (sorted; with ``run_ends`` and ``probe_rows``, and past 250k
+reads ``run_starts`` and ``stitch_rows``) at least once per closure call
 (the run's
 ``closures`` sPCR phase), where ``probe_rows`` may launch no more often
 than that, the
@@ -223,7 +240,7 @@ plain closure loop must never run and no sorted store's host mirror may be built
 insert of a
 batch, merge
 and grow of a hash table and device group (one routed launch for all
-shards of a group; also in phase 19's hash runs), ``hash_lookup`` in
+shards of a group; also in phase 19's and 25's hash runs), ``hash_lookup`` in
 phases 10, 15 and 18 (``--mirror
 device``), once per lookup wave, and none of the sorted store's kernels
 in those hash runs;
@@ -256,9 +273,17 @@ import types
 T_START = time.monotonic()
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the offline grid (benchmarks/benchmark_offline.yaml): each panel's seed
-SEEDS = {"cnidaria": 0, "hydrozoa": 1, "metazoa": 2}
+GRID_SEEDS = {"cnidaria": 0, "hydrozoa": 1, "metazoa": 2}
 N_READS_MAX = 8_000_000  # the grid's deepest cell: one FASTQ a panel
 M = 1_000_000
+# phase 25: the six other built-in panels, run by name (--pcr-panel), each
+# from a synthetic FASTQ of its own (seeds after the grid's): insecta's up
+# to the grid's depth, the others' to 1M reads
+BUILTIN_SEEDS = {"angiospermae": 3, "bacteria": 4, "c_elegans": 5,
+                 "human": 6, "insecta": 7, "teleostei": 8}
+SEEDS = {**GRID_SEEDS, **BUILTIN_SEEDS}
+FASTQ_READS = {p: N_READS_MAX if p in GRID_SEEDS or p == "insecta" else M
+               for p in SEEDS}
 # phase 19: the committed cells that phases 4-18 do not run, sorted
 # (the main path), then the hash backend's
 GRID_SORTED = [("cnidaria", 8 * M), ("hydrozoa", M), ("hydrozoa", 4 * M),
@@ -268,7 +293,7 @@ GRID_HASH = [("cnidaria", 8 * M), ("hydrozoa", M), ("metazoa", M)]
 PANELS = {p: os.path.join(HERE, "sharkmer_tpu_torch", "panels", f"{p}.yaml")
           for p in SEEDS}
 FASTQS = {p: os.path.join(HERE, "benchmarks", "work", "synth",
-                          f"{p}_synthetic-seed{seed}_{N_READS_MAX}.fastq.gz")
+                          f"{p}_synthetic-seed{seed}_{FASTQ_READS[p]}.fastq.gz")
           for p, seed in SEEDS.items()}
 # phases 4-18: the cnidaria cells
 PANEL, FASTQ = PANELS["cnidaria"], FASTQS["cnidaria"]
@@ -332,6 +357,15 @@ LONG_K_RUNS = {8 * M: [("k31_sorted_8M", 1, ()),
                    ("k31_shards_1M", 1, ("--n-shards", N_SHARDS))]}
 # phase 24: the record-stream entries on the 1M cell; inputs in OUT_DIR
 ENTRY_FILES = ("R1", "R2", "part1", "part2")
+VALIDATE_EVERY = "1000"  # phase 24's --validate-every run: a record in 1000
+# phase 25: each panel's JAX oracle (on the CPU) at PANEL_ORACLE_READS, the
+# depths held to the embedded amplicons, and insecta's runs at 1M held to
+# its sorted run (label suffix, further CLI arguments)
+PANEL_ORACLE_READS = 250_000
+PANEL_DEPTHS = {p: (M, 8 * M) if p == "insecta" else (M,)
+                for p in BUILTIN_SEEDS}
+INSECTA_1M = (("full", ("--mirror", "full")), ("hash", ("--backend", "hash")))
+AMPLICON_SUBST = 0.01  # tools/synth.py's substitution rate a read base
 READS_PER_TURN = 1000  # the reads a chunk takes in turn (io.rs:355-361)
 HISTO_MAX = 10000  # the CLI's --histo-max default
 INT64_MAX = (1 << 63) - 1
@@ -339,6 +373,7 @@ VARYING_STATS = ("command", "peak_memory_bytes")
 PANEL_SCAN_OUT = 1 << 14  # SortedKmerStore.prefix_scan_many's max_out
 SPLIT_SLACK_S = 0.5  # cold_start --cli: its parts against the child's wall
 FALLBACK_WARNINGS = ("sPCR device-index build failed", "reach warmup failed")
+PROFILER_ATTEMPTS = 3  # profiled_ms: sessions before an empty trace fails
 
 KERNELS = {
     # name: (source in the repo, the TPU kernel it replaces)
@@ -455,17 +490,32 @@ def profiled_ms(torch, fn, kernel: str, reps: int) -> float:
     the trace holds (at most ``reps``: a trace can drop one)."""
     from torch.profiler import ProfilerActivity, profile
 
+    def device_us(events):
+        return sum(getattr(a, "self_device_time_total",
+                           getattr(a, "self_cuda_time_total", 0.0))
+                   for a in events)
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [a for a in prof.key_averages() if kernel in a.key]
-    count = sum(a.count for a in hits)
-    us = sum(getattr(a, "self_device_time_total",
-                     getattr(a, "self_cuda_time_total", 0.0)) for a in hits)
+    for attempt in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        hits = [a for a in events if kernel in a.key]
+        count = sum(a.count for a in hits)
+        us = device_us(hits)
+        if count or device_us(events) > 0:
+            break
+        # a session now and then records no device activity at all on
+        # the H100 machine (as torch.profiler's CUPTI tracing runs there):
+        # trace again; a session that traced other work but not this
+        # kernel fails below at once
+        print(f"torch.profiler recorded no device activity in {reps} calls "
+              f"of {kernel} (attempt {attempt + 1} of {PROFILER_ATTEMPTS})",
+              flush=True)
     require(0 < count <= reps and us > 0,
             f"torch.profiler saw {count} launches of {kernel} ({us} us of "
             f"device time) in {reps} calls")
@@ -1128,10 +1178,11 @@ def instrument(torch, kernels):
     # on the card the closure must never fall back to its torch loop
     counted(closure, "closure_plain",
             lambda a: ctx.plain_closures.append(1))
-    # the batched primer scan of a partition: its last argument is the
-    # call's max_out, past PANEL_SCAN_OUT on a retry
+    # the batched primer scan of a partition: (its width, the padded
+    # oligos' count; its max_out, the last argument, past PANEL_SCAN_OUT
+    # on a retry)
     counted(sorted_store, "panel_scan",
-            lambda a: ctx.panel_scans.append(a[-1]))
+            lambda a: ctx.panel_scans.append((a[5].shape[0], a[-1])))
     return ctx
 
 
@@ -1197,7 +1248,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
                     panel: str = "cnidaria", k: int = K, before_check=None):
     """One CLI run of ``panel``'s cell at ``n_reads`` and ``-k k`` (from the
     panel's FASTQ, or, with ``fastq=False``, from the checkpoint, files or
-    stdin that ``extra`` names), held to the outputs in ``oracle`` (by
+    stdin that ``extra`` names; a built-in panel of BUILTIN_SEEDS by
+    name, the grid's from its file), held to the outputs in ``oracle`` (by
     default the JAX package's committed cell of ``panel`` at ``n_reads``)
     by ``check_outputs``; ``before_check(out, sample)``, where given, runs
     first (it may write ``oracle``). Prints every card's peak. Returns (the
@@ -1210,8 +1262,11 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     oracle = oracle or oracle_of(panel, n_reads)
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
-    argv = ["-s", sample, "-k", str(k), "-t", "8", "-o", out,
-            "--pcr-panel-file", PANELS[panel], *extra]
+    # the built-in panels of phase 25 by name, as their users name them;
+    # the grid's through the panel file, as its committed cells were made
+    by = (("--pcr-panel", panel) if panel in BUILTIN_SEEDS
+          else ("--pcr-panel-file", PANELS[panel]))
+    argv = ["-s", sample, "-k", str(k), "-t", "8", "-o", out, *by, *extra]
     if fastq:
         argv += ["-m", str(n_reads), FASTQS[panel]]
     for index in range(torch.cuda.device_count()):  # each card's own peak
@@ -1276,11 +1331,13 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
         calls = closure_retries(run_log.closures)
         print(f"{label}: closure calls (f_cap, overflow retries): {calls}; "
               f"{sum(r for _, r in calls)} retries in all")
+    counts["scan_width"] = max((w for w, _ in ctx.panel_scans), default=0)
     if ctx.panel_scans:
-        retried = [mo for mo in ctx.panel_scans if mo > PANEL_SCAN_OUT]
+        widths = sorted({w for w, _ in ctx.panel_scans})
+        retried = [mo for _, mo in ctx.panel_scans if mo > PANEL_SCAN_OUT]
         print(f"{label}: batched primer scans: {len(ctx.panel_scans)} "
-              f"panel_scan calls, {len(retried)} past max_out "
-              f"{PANEL_SCAN_OUT} (retries at {retried})")
+              f"panel_scan calls of width {widths}, {len(retried)} past "
+              f"max_out {PANEL_SCAN_OUT} (retries at {retried})")
     if before_check is not None:
         before_check(out, sample)
     check_outputs(label, out, oracle, sample)
@@ -1781,8 +1838,9 @@ def entry_inputs() -> dict:
 def entries_phase(ctx, runs: dict) -> None:
     """Phase 24: the 1M cnidaria cell through the record-stream entries,
     each byte-identical to the committed cell: from stdin (the gzip stream
-    of the 8M FASTQ in ``sys.stdin``, ``-m`` 1M), ``--paired R1 R2``, and
-    two gzip files through the native loader. Each must launch phase 4's
+    of the 8M FASTQ in ``sys.stdin``, ``-m`` 1M), ``--paired R1 R2``, two
+    gzip files through the native loader, and the one FASTQ with
+    ``--validate-every`` VALIDATE_EVERY. Each must launch phase 4's
     kernels (``required_launches``) and no hash kernel; each prints its
     ingest wall beside phase 4's."""
     import gzip
@@ -1806,11 +1864,14 @@ def entries_phase(ctx, runs: dict) -> None:
     runs["entry_two_files"] = drive_main_path(
         ctx, "entry_two_files", M, (paths["part1"], paths["part2"]),
         fastq=False)
+    runs["entry_validate"] = drive_main_path(
+        ctx, "entry_validate", M, ("--validate-every", VALIDATE_EVERY))
 
     def ingest(label):
         return float(runs[label][1].split("ingest ")[1].split(" s")[0])
 
-    for label in ("entry_stdin", "entry_paired", "entry_two_files"):
+    for label in ("entry_stdin", "entry_paired", "entry_two_files",
+                  "entry_validate"):
         counts = runs[label][0]
         for name in ("hash_insert", "hash_lookup"):
             require(not counts[name], f"{name} was launched in the {label} "
@@ -1818,6 +1879,186 @@ def entries_phase(ctx, runs: dict) -> None:
         print(f"{label}: ingest {ingest(label):.3f} s vs "
               f"{ingest('default'):.3f} s through the native loader (phase 4)",
               flush=True)
+
+
+def panel_labels() -> dict:
+    """Phase 25's run labels: {"sorted": the runs on the sorted store's
+    reach closure, "deep": those of them past the oracles' depth (drain
+    v2), "full": insecta's ``--mirror full`` run, "hash": the
+    ``--backend hash`` runs}."""
+    labels = {"sorted": [], "deep": [], "full": ["panels_full_insecta_1M"],
+              "hash": ["panels_hash_insecta_1M"]}
+    for panel in BUILTIN_SEEDS:
+        labels["sorted"].append(f"panels_{panel}_250k")
+        labels["hash"].append(f"panels_hash_{panel}_250k")
+        for n_reads in PANEL_DEPTHS[panel]:
+            labels["deep"].append(f"panels_{panel}_{n_reads // M}M")
+    labels["sorted"] += labels["deep"]
+    return labels
+
+
+def fasta_seqs(path: str) -> list[str]:
+    """The sequences of a FASTA file."""
+    seqs = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                seqs.append("")
+            elif seqs:
+                seqs[-1] += line.strip()
+    return seqs
+
+
+def amplified(out: str, sample: str) -> tuple[set, int]:
+    """(the genes ``out``'s ``stats.yaml`` amplified, its primer pairs)."""
+    import yaml
+
+    with open(os.path.join(out, f"{sample}.stats.yaml")) as f:
+        results = yaml.safe_load(f)["pcr_results"]
+    return ({r["gene_name"] for r in results if r["status"] == "success"},
+            len(results))
+
+
+def amplicon_distance(np, product: str, amplicon: str) -> int:
+    """The fewest substitutions that put ``product`` inside ``amplicon``,
+    on either strand (its length if it is longer)."""
+    if len(product) > len(amplicon):
+        return len(product)
+    rc = str.maketrans("ACGT", "TGCA")
+    amp = np.frombuffer(amplicon.encode(), np.uint8)
+    windows = np.lib.stride_tricks.sliding_window_view(amp, len(product))
+    return min(int((windows != np.frombuffer(s.encode(), np.uint8))
+                   .sum(axis=1).min())
+               for s in (product, product.translate(rc)[::-1]))
+
+
+def check_amplicons(label: str, out: str, sample: str, panel: str,
+                    genes: set) -> None:
+    """A run past the oracles' depth, held to an independent reference:
+    every gene of ``genes`` (those its panel's JAX oracle amplified)
+    amplified, each with a product within its pair's [min_length,
+    max_length] that lies inside an amplicon ``tools/synth.py`` embedded
+    (either strand) up to AMPLICON_SUBST of its bases: the consensus of
+    reads with that rate of substitutions. The amplicon is its own
+    pair's, or, where a panel's pairs share primer sites (bacteria's 16S
+    pairs), another pair's, which the mismatch-tolerant primer match
+    also finds. Prints the genes whose products lie only in another
+    pair's amplicon, and each gene's substitutions."""
+    import numpy as np
+
+    from sharkmer_tpu_torch.pcr.panels import get_panel
+    from sharkmer_tpu_torch.tools.synth import panel_amplicons
+
+    params = {p.gene_name: p for p in get_panel(panel)}
+    # synth names a gene as the panel file does; the CLI prefixes the panel
+    amplicons = {f"{panel}_{gene}": amp for gene, amp in
+                 panel_amplicons(PANELS[panel], seed=SEEDS[panel]).items()}
+    done, n_pairs = amplified(out, sample)
+    require(genes <= done, f"{label}: the oracle's genes "
+            f"{sorted(genes - done)} not amplified")
+    best, elsewhere = {}, {}
+    for gene in sorted(done):
+        p = params[gene]
+        # (substitutions, not its own pair's, host) of each product that
+        # lies inside an amplicon; the fewest, its own pair's first
+        fits = [(d, host != gene, host)
+                for s in fasta_seqs(os.path.join(out, f"{sample}_{gene}"
+                                                 f".fasta"))
+                if p.min_length <= len(s) <= p.max_length
+                for host, amp in amplicons.items()
+                for d in (amplicon_distance(np, s, amp),)
+                if d <= len(s) * AMPLICON_SUBST]
+        if fits:
+            d, other, host = min(fits)
+            best[gene] = d
+            if other:
+                elsewhere[gene] = host
+    require(genes <= set(best), f"{label}: no product inside an embedded "
+            f"amplicon for {sorted(genes - set(best))}")
+    print(f"{label}: {len(done)}/{n_pairs} genes amplified; each of the "
+          f"oracle's {len(genes)} with a product inside an embedded "
+          f"amplicon (substitutions {best}; only in another pair's: "
+          f"{elsewhere}); beyond the oracle's: {sorted(done - genes)} "
+          f"({sorted((done - genes) - set(best))} outside every amplicon)",
+          flush=True)
+
+
+def panels_phase(ctx, runs: dict) -> None:
+    """Phase 25: the built-in panels of BUILTIN_SEEDS by name, each from
+    its own synthetic FASTQ. (a) The first PANEL_ORACLE_READS reads,
+    sorted (``--mirror auto``, the reach closure) and ``--backend hash``,
+    each byte-identical to the panel's JAX oracle in ``oracles/``. (b)
+    Each depth of PANEL_DEPTHS (1M; insecta also 8M), sorted, held to the
+    embedded amplicons (``check_amplicons``) for every gene the oracle
+    amplified; insecta's 1M run again under INSECTA_1M (``--mirror
+    full``, ``--backend hash``), byte-identical to its sorted run. Each
+    run prints its stage walls, every card's peak, its launches, its
+    ``panel_scan`` calls (widths, retries), its closure calls and
+    retries, and its genes amplified of the panel's pairs."""
+    torch = ctx.torch
+    for panel, seed in BUILTIN_SEEDS.items():
+        oracle = os.path.join(HERE, "oracles", panel, f"synthetic-seed{seed}",
+                              str(PANEL_ORACLE_READS))
+        genes, n_pairs = amplified(
+            oracle, f"synthetic-seed{seed}_{PANEL_ORACLE_READS}")
+        print(f"{panel}: the JAX oracle amplified {len(genes)}/{n_pairs} "
+              f"genes", flush=True)
+        for label, extra in ((f"panels_{panel}_250k", ("-vv",)),
+                             (f"panels_hash_{panel}_250k",
+                              ("--backend", "hash"))):
+            torch.cuda.empty_cache()
+            runs[label] = drive_main_path(ctx, label, PANEL_ORACLE_READS,
+                                          extra, oracle=oracle, panel=panel)
+            done, _ = amplified(os.path.join(OUT_DIR, label),
+                                f"synthetic-seed{seed}_{PANEL_ORACLE_READS}")
+            print(f"{label}: {len(done)}/{n_pairs} genes amplified")
+        for n_reads in PANEL_DEPTHS[panel]:
+            label = f"panels_{panel}_{n_reads // M}M"
+            expected = os.path.join(OUT_DIR, f"expected_{label}")
+
+            def hold(out, sample, label=label, expected=expected):
+                """The amplicon check; then the run is its own oracle,
+                and that of the runs that follow it at its depth."""
+                check_amplicons(label, out, sample, panel, genes)
+                shutil.rmtree(expected, ignore_errors=True)
+                shutil.copytree(out, expected)
+
+            torch.cuda.empty_cache()
+            runs[label] = drive_main_path(ctx, label, n_reads, ("-vv",),
+                                          oracle=expected, panel=panel,
+                                          before_check=hold)
+            if panel == "insecta" and n_reads == M:
+                for tag, extra in INSECTA_1M:
+                    torch.cuda.empty_cache()
+                    other = f"panels_{tag}_insecta_1M"
+                    runs[other] = drive_main_path(ctx, other, M, extra,
+                                                  oracle=expected,
+                                                  panel=panel)
+
+
+def check_panel_runs(runs) -> None:
+    """Phase 25's runs beside ``required_launches``: the sorted runs
+    launch no hash kernel, and insecta's batched scan is 2^20 wide; the
+    ``--mirror full`` run builds the host mirror once and launches no
+    closure; each hash run as ``check_hash_run``, its host mirror built
+    once."""
+    labels = panel_labels()
+    for label in labels["sorted"] + labels["full"]:
+        counts = runs[label][0]
+        require(not counts["hash_insert"],
+                f"hash_insert was launched in the {label} run")
+        if "insecta" in label:
+            require(counts["scan_width"] == 1 << 20, f"{label}: batched "
+                    f"primer scan {counts['scan_width']} wide, not 2^20")
+    full = runs["panels_full_insecta_1M"][0]
+    require(full["mirror_builds"] == 1 and not full["reach_closure"],
+            f"panels_full_insecta_1M: {full['mirror_builds']} host mirrors, "
+            f"{full['reach_closure']} reach_closure launches")
+    for label in labels["hash"]:
+        check_hash_run(runs, label, 1)
+        got = (runs[label][0]["hash_exports"], runs[label][0]["shard_exports"])
+        require(got == (1, 0), f"{label}: KmerTable and ShardedKmerTable."
+                f"to_sorted_arrays ran {got} times, not (1, 0)")
 
 
 def run_scan_phase(torch, np, card: str, kernels) -> dict:
@@ -2715,20 +2956,29 @@ def required_launches() -> dict:
     k31_closures = ("k31_chunks_sorted_250k", "k31_sorted_8M",
                     "k31_chunked_sorted_8M", "k31_1M", "k31_shards_1M")
     k31_hash = ("k31_chunks_hash_250k", "k31_hash_8M", "k31_chunked_hash_8M")
-    entries = ("entry_stdin", "entry_paired", "entry_two_files")
+    entries = ("entry_stdin", "entry_paired", "entry_two_files",
+               "entry_validate")
+    # phase 25: every sorted run its ghosted first drain, the closures and
+    # their warm starts; drain v2 past the oracles' depth (and in the
+    # --mirror full run, whose ingest is the 1M run's)
+    panels = panel_labels()
+    deep = (*panels["deep"], *panels["full"])
     return {"run_ends": ("default", "max_agg_2^24", *k31_drains, "k31_1M",
-                         "k31_mirror_full_1M", *entries),
+                         "k31_mirror_full_1M", *entries, *panels["sorted"],
+                         *panels["full"]),
             "run_starts": ("default", "max_agg_2^24", "shards",
                            *chunked_sorted, *k31_drains, "k31_shards_1M",
-                           *entries),
-            "probe_rows": ("default", "max_agg_2^24", *entries),
-            "stitch_rows": ("max_agg_2^24", "4M"),
+                           *entries, *deep),
+            "probe_rows": ("default", "max_agg_2^24", *entries,
+                           *panels["sorted"]),
+            "stitch_rows": ("max_agg_2^24", "4M", *deep),
             "reach_closure": ("default", "max_agg_2^24", "4M",
                               "load_sorted", "shards", *chunked_sorted,
-                              *k31_closures, *entries),
+                              *k31_closures, *entries, *panels["sorted"]),
             "hash_insert": ("hash", "load_hash", "hash_4M",
                             "shards_hash", "shards_hash_device",
-                            "shards_load", *chunked_hash, *k31_hash),
+                            "shards_load", *chunked_hash, *k31_hash,
+                            *panels["hash"]),
             "hash_lookup": ("hash_device", "shards_hash_device")}
 
 
@@ -2754,13 +3004,22 @@ def main() -> int:
     require(torch.cuda.is_available(), "torch sees no CUDA device")
     args = sys.argv[1:]
     require(args in ([], ["--closure-times"], ["--chunked"],
-                     ["--chunked-cards"], ["--long-k"], ["--entries"]),
+                     ["--chunked-cards"], ["--long-k"], ["--entries"],
+                     ["--panels"]),
             f"unknown arguments {args}: none, --closure-times, --chunked, "
-            f"--chunked-cards, --long-k or --entries")
+            f"--chunked-cards, --long-k, --entries or --panels")
     # the options that run one phase after phases 1 and 2 (and, for
     # --entries, phase 4's run, its ingest wall the one to compare with)
     chunked_only = args in (["--chunked"], ["--chunked-cards"])
-    alone = chunked_only or args in (["--long-k"], ["--entries"])
+    alone = chunked_only or args in (["--long-k"], ["--entries"],
+                                     ["--panels"])
+    # the panels whose FASTQ phase 1 starts: each option's; the whole
+    # script's grid panels (phase 25's start after phase 3, so that
+    # phases 2 and 3, the builds, the timed kernels and their profiler
+    # sessions, run beside the grid's three children only)
+    needed = (set() if args == ["--closure-times"] else
+              set(BUILTIN_SEEDS) if args == ["--panels"] else
+              {"cnidaria"} if alone else set(GRID_SEEDS))
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -2775,18 +3034,22 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s); using {kind}", flush=True)
-    # one child process a missing FASTQ, all at once
-    synth = {} if args == ["--closure-times"] else {
-        panel: subprocess.Popen([
-            sys.executable, "-c",
-            "import sys; from sharkmer_tpu_torch.tools.synth import "
-            "synthesize_panel_fastq as s; s(sys.argv[1], sys.argv[2], "
-            "n_reads=int(sys.argv[3]), seed=int(sys.argv[4]))",
-            PANELS[panel], FASTQS[panel], str(N_READS_MAX), str(seed),
-        ], cwd=HERE)
-        for panel, seed in SEEDS.items()
-        if not os.path.exists(FASTQS[panel])
-        and not (alone and panel != "cnidaria")}
+    synth = {}
+
+    def start_synth(panels) -> None:
+        """One child process a missing FASTQ of ``panels``, all at once."""
+        for panel in panels:
+            if panel not in synth and not os.path.exists(FASTQS[panel]):
+                synth[panel] = subprocess.Popen([
+                    sys.executable, "-c",
+                    "import sys; from sharkmer_tpu_torch.tools.synth import "
+                    "synthesize_panel_fastq as s; s(sys.argv[1], "
+                    "sys.argv[2], n_reads=int(sys.argv[3]), "
+                    "seed=int(sys.argv[4]))",
+                    PANELS[panel], FASTQS[panel], str(FASTQ_READS[panel]),
+                    str(SEEDS[panel])], cwd=HERE)
+
+    start_synth(needed)
 
     def wait_fastq(panel: str) -> None:
         start = time.monotonic()
@@ -2831,7 +3094,8 @@ def main() -> int:
                   f"{time.monotonic() - T_START:.1f} s; phase 22 passed")
             return 0
         if alone:
-            wait_fastq("cnidaria")
+            if args != ["--panels"]:
+                wait_fastq("cnidaria")
             os.makedirs(OUT_DIR, exist_ok=True)
             ctx = instrument(torch, kernels)
             os.environ["SHARKMER_TORCH_DEVICE"] = "cuda"
@@ -2840,6 +3104,12 @@ def main() -> int:
                 phase(f"23. k={LONG_K} (alone: --long-k)")
                 long_k_phase(ctx, np, runs, card)
                 check_long_k_runs(runs)
+            elif args == ["--panels"]:
+                phase("25. the built-in panels (alone: --panels)")
+                for panel in BUILTIN_SEEDS:
+                    wait_fastq(panel)
+                panels_phase(ctx, runs)
+                check_panel_runs(runs)
             else:
                 phase("4. main path: 1M reads, cnidaria panel (for --entries)")
                 runs["default"] = drive_main_path(ctx, "default", M)
@@ -2861,6 +3131,7 @@ def main() -> int:
                                     device_times=True))
 
         phase("4. main path: 1M reads, cnidaria panel, default drain budget")
+        start_synth(BUILTIN_SEEDS)
         wait_fastq("cnidaria")
         os.makedirs(OUT_DIR, exist_ok=True)
         ctx = instrument(torch, kernels)
@@ -2988,7 +3259,7 @@ def main() -> int:
 
         phase("19. the offline grid: the 7 committed cells not run above "
               "(sorted, --mirror auto), then --backend hash")
-        for panel in SEEDS:
+        for panel in GRID_SEEDS:
             wait_fastq(panel)
         for panel, n_reads in GRID_SORTED:
             torch.cuda.empty_cache()  # the last run's cached blocks
@@ -3021,8 +3292,16 @@ def main() -> int:
               f"reads and three at 1M against the reference")
         record["k31"] = long_k_phase(ctx, np, runs, card)
 
-        phase("24. the record-stream entries: stdin, --paired, two files")
+        phase("24. the record-stream entries: stdin, --paired, two files, "
+              f"--validate-every {VALIDATE_EVERY}")
         entries_phase(ctx, runs)
+
+        phase(f"25. the built-in panels {', '.join(BUILTIN_SEEDS)} by name: "
+              f"{PANEL_ORACLE_READS} reads sorted and hash against oracles/, "
+              f"1M (insecta also 8M) against the embedded amplicons")
+        for panel in BUILTIN_SEEDS:
+            wait_fastq(panel)
+        panels_phase(ctx, runs)
     finally:
         for child in synth.values():
             child.kill()
@@ -3075,6 +3354,7 @@ def main() -> int:
         check_group_runs(runs, tag, n_groups)
     check_chunked_runs(runs)
     check_long_k_runs(runs)
+    check_panel_runs(runs)
 
     parts = f"{CLOSURE_PARTS} partitions"
     shards = f"{CLOSURE_SHARDS} shards"

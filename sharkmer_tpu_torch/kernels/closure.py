@@ -19,10 +19,11 @@ It is the port's counterpart of the JAX package's closure loop
 kernel ``probe_rows`` (``sharkmer_tpu/ops/pallas_kernels.py``) inside
 every level. On a CPU tensor the wrapper runs the plain version
 (``closure_plain``, the CPU path and the test oracle): that state
-machine as a host loop of torch ops with ``probe_window_plain`` over
-every partition. On a CUDA tensor it launches the hand-written kernel
-in ``csrc/reach_closure.cu`` (the whole call on one thread-block
-cluster; see the source) on the current stream, or raises.
+machine as a host loop of torch ops, each level's probe
+``probe_window_plain``'s over every partition at once (``lookup_plain``).
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/reach_closure.cu`` (the whole call on one thread-block cluster;
+see the source) on the current stream, or raises.
 ``reach_closure.launches`` counts the wrapper's kernel launches.
 """
 
@@ -37,7 +38,7 @@ from ..ops.histogram import revcomp
 from ..ops.keys import SENTINEL
 from . import build
 from . import peer
-from .probe import INF32, PartTable, probe_part_plain
+from .probe import BLOCK, INF32, PartTable
 
 _count_lock = threading.Lock()
 
@@ -48,19 +49,82 @@ def closure_log_w(depth: int, f_cap: int) -> int:
     return (depth + 4) * f_cap
 
 
+# the most elements of one [P, chunk, window] temporary of lookup_plain
+# (64 MiB of int64): candidates are probed in chunks that keep under it
+LOOKUP_CHUNK_ELEMS = 1 << 23
+
+
+def stack_parts(table: PartTable, device) -> tuple:
+    """The table's partitions laid end to end on ``device``, for
+    ``lookup_plain``: keys, counts and LUTs each one flat tensor, and per
+    partition (``[P, 1]``) its row and LUT offsets in them, its last
+    bucket, LUT shift, row count and global base; the probe window in
+    blocks. One partition on ``device`` is used as it lies (views). Made
+    once a table and device (``table.plain_blocks``): the partitions are
+    immutable per flush, as the kernels' descriptors assume."""
+    device = torch.device(device)
+    cached = table.plain_blocks.get(device)
+    if cached is not None:
+        return cached
+    scs = table.sidecars
+
+    def flat(name):
+        return torch.cat([getattr(sc, name).to(device) for sc in scs])
+
+    def column(values):
+        return torch.tensor(values, dtype=torch.int64, device=device)[:, None]
+
+    def offsets(lengths):
+        return column([sum(lengths[:i]) for i in range(len(lengths))])
+
+    rows = [int(sc.keys1d.shape[0]) for sc in scs]
+    luts = [int(sc.lut.shape[0]) for sc in scs]
+    blocks = (flat("keys1d"), flat("counts1d"), flat("lut"), offsets(rows),
+              offsets(luts), column([n - 2 for n in luts]),
+              column([sc.shift for sc in scs]), column(rows),
+              column(table.bases), max(sc.probe_blocks for sc in scs))
+    table.plain_blocks[device] = blocks
+    return blocks
+
+
 def lookup_plain(table: PartTable, cand, min_count: int) -> torch.Tensor:
     """(global row id | INF32) per candidate key (int32). A key-range
     table: every partition probes every candidate, as the JAX package's
-    ``lookup`` does. An owner-routed table: each shard probes the
-    candidates it owns (``table.route``), as the kernel does."""
-    probe_w = max(s.probe_blocks for s in table.sidecars)
-    ids = torch.full(cand.shape, INF32, dtype=torch.int32, device=cand.device)
-    part = table.route(cand) if table.n_shards else None
-    for i, (sc, base) in enumerate(zip(table.sidecars, table.bases)):
-        mine = cand if part is None else torch.where(part == i, cand, SENTINEL)
-        row = probe_part_plain(sc, mine, min_count, probe_w)
-        ids = torch.where(row >= 0, row + base, ids)
-    return ids
+    ``lookup`` does, and the last partition that holds it gives its id.
+    An owner-routed table: each shard probes the candidates it owns
+    (``table.route``), as the kernel does. Each partition's probe is
+    ``probe_window_plain``'s, all partitions at once on ``stack_parts``'
+    flat copy, in chunks of candidates that keep each temporary within
+    ``LOOKUP_CHUNK_ELEMS``."""
+    (keys, counts, lut, row_off, lut_off, last, shift, n_rows, base,
+     blocks) = stack_parts(table, cand.device)
+    n_parts = row_off.shape[0]
+    parts = torch.arange(n_parts, dtype=torch.int64, device=cand.device)
+    offs = torch.arange(blocks * BLOCK, dtype=torch.int64, device=cand.device)
+    route = table.route(cand) if table.n_shards else None
+    chunk = max(1, LOOKUP_CHUNK_ELEMS // (n_parts * blocks * BLOCK))
+    out = []
+    for lo in range(0, cand.shape[0], chunk):
+        c = cand[None, lo:lo + chunk].expand(n_parts, -1)
+        if route is not None:
+            c = torch.where(route[None, lo:lo + chunk] == parts[:, None], c,
+                            SENTINEL)
+        b = torch.minimum(c >> shift, last) + lut_off
+        s = lut[b].to(torch.int64)
+        e = lut[b + 1].to(torch.int64)
+        live = (c != SENTINEL) & (e > s)
+        rows = ((s >> 5) << 5)[..., None] + offs
+        safe = torch.minimum(rows, (n_rows - 1)[..., None]) + row_off[..., None]
+        hit = ((rows >= s[..., None]) & (rows < e[..., None])
+               & live[..., None] & (keys[safe] == c[..., None])
+               & (counts[safe] >= min_count))
+        row = torch.where(hit, rows, -1).max(dim=2).values
+        pick = torch.where(row >= 0, parts[:, None], -1).max(dim=0).values
+        ids = (row + base).gather(0, pick.clamp(min=0)[None, :])[0]
+        out.append(torch.where(pick >= 0, ids, INF32).to(torch.int32))
+    if not out:
+        return torch.empty(0, dtype=torch.int32, device=cand.device)
+    return torch.cat(out)
 
 
 def closure_plain(table: PartTable, c0, pre_ids, min_count: int, k: int,

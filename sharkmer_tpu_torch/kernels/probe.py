@@ -141,6 +141,8 @@ class PartTable:
                          sc.lut.shape[0] | (sc.shift << 32), base])
         self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
         self.first_keys = self.desc[:, 3].contiguous()
+        # closure.stack_parts' flat copies for the plain lookup, by device
+        self.plain_blocks = {}
 
     def route(self, cand) -> torch.Tensor:
         """The partition each candidate probes: its owner shard

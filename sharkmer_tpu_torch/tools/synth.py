@@ -35,26 +35,16 @@ def _panel_params(panel_path: Path):
     return primers
 
 
-def synthesize_panel_fastq(
-    panel_path: Path,
-    out_path: Path,
-    n_reads: int,
-    read_len: int = 150,
-    genome_mbp: float = 20.0,
-    error_rate: float = 0.01,
-    seed: int = 0,
-) -> Path:
-    """Write ``n_reads`` synthetic reads covering ``panel_path``'s
-    amplicons to ``out_path`` (gzip FASTQ). Idempotent per path."""
+def embed_amplicons(panel_path: Path, genome: np.ndarray, rng) -> dict:
+    """Write 8 copies of one amplicon per primer pair of ``panel_path``
+    into ``genome`` (2-bit codes), drawing each amplicon's degenerate
+    primer bases and insert from ``rng``. Returns {gene name: amplicon}
+    (forward primer, insert, reverse primer's revcomp), each name as the
+    panel file gives it (the CLI's outputs put the panel's name and an
+    underscore before it)."""
     from sharkmer_tpu_torch.pcr.params import IUPAC
 
-    out_path = Path(out_path)
-    if out_path.exists():
-        return out_path
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-
-    rng = np.random.default_rng(seed)
-    genome = rng.integers(0, 4, size=int(genome_mbp * 1e6), dtype=np.uint8)
+    amplicons = {}
     pos = 1000
     for p in _panel_params(panel_path):
         fwd = "".join(
@@ -70,6 +60,7 @@ def synthesize_panel_fastq(
             rng.choice(list("ACGT"), size=total - len(fwd) - len(rev))
         )
         amp = fwd + insert + "".join(_COMP[b] for b in reversed(rev))
+        amplicons[p.gene_name] = amp
         codes = np.frombuffer(amp.encode(), np.uint8)
         lut = np.full(256, 0, np.uint8)
         for i, b in enumerate("ACGT"):
@@ -80,6 +71,38 @@ def synthesize_panel_fastq(
         for _ in range(8):
             genome[pos : pos + len(codes)] = codes
             pos += len(codes) + 2000
+    return amplicons
+
+
+def panel_amplicons(panel_path: Path, genome_mbp: float = 20.0,
+                    seed: int = 0) -> dict:
+    """The amplicons that ``synthesize_panel_fastq(panel_path, ...,
+    genome_mbp=genome_mbp, seed=seed)`` embeds, by gene name, whatever
+    its read count: an independent reference for a run's products."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=int(genome_mbp * 1e6), dtype=np.uint8)
+    return embed_amplicons(panel_path, genome, rng)
+
+
+def synthesize_panel_fastq(
+    panel_path: Path,
+    out_path: Path,
+    n_reads: int,
+    read_len: int = 150,
+    genome_mbp: float = 20.0,
+    error_rate: float = 0.01,
+    seed: int = 0,
+) -> Path:
+    """Write ``n_reads`` synthetic reads covering ``panel_path``'s
+    amplicons to ``out_path`` (gzip FASTQ). Idempotent per path."""
+    out_path = Path(out_path)
+    if out_path.exists():
+        return out_path
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=int(genome_mbp * 1e6), dtype=np.uint8)
+    embed_amplicons(panel_path, genome, rng)
 
     col = np.arange(read_len)[None, :]
     qual = b"I" * read_len

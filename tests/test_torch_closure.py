@@ -25,6 +25,18 @@ from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 from test_torch_reach import _assert_same, _codes, _stores, _table
 from util import random_genome
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU paths run many small torch ops (the plain closure
+    loop a level at a time): on one intra-op thread they take a fraction
+    of the time they take on several beside other busy processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K = 11
 
 
@@ -183,6 +195,13 @@ def test_routed_probe_equals_all_partition_lookup(case, monkeypatch):
         assert got.dtype == torch.int32
         assert torch.equal(got, want)
         assert int((got != probe.INF32).sum()) > 0
+        # in five chunks of candidates, the last one short: the same ids
+        window = closure.stack_parts(table, "cpu")[-1] * probe.BLOCK
+        chunk = cand.shape[0] // 5 + 1
+        monkeypatch.setattr(closure, "LOOKUP_CHUNK_ELEMS",
+                            chunk * len(table.sidecars) * window)
+        assert torch.equal(closure.lookup_plain(table, cand, mc), want)
+        monkeypatch.undo()
     assert probe.probe_rows.launches == 0  # CPU: no kernel launch
 
 

@@ -59,6 +59,18 @@ from test_torch_sharded import (
 )
 from util import random_genome, reads_from_genome
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU paths run many small torch ops (the plain closure
+    loop a level at a time): on one intra-op thread they take a fraction
+    of the time they take on several beside other busy processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LAYOUTS = [(4, 4), (4, 2), (8, 3)]
 IDS = [f"S{s}-D{d}" for s, d in LAYOUTS]
 CLASSES = {"hash": (JaxTable, ShardedKmerTable),

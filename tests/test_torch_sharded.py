@@ -256,7 +256,7 @@ def test_sharded_reach_matches_jax(reach_stores):
         assert len(second.keys)
 
 
-def test_owner_routed_probes(reach_stores):
+def test_owner_routed_probes(reach_stores, monkeypatch):
     """The index is owner-routed, its row ids are shard * capacity + row,
     and the plain probe and closure route each key to its owner: the
     same answers as probing every shard with every key."""
@@ -281,6 +281,11 @@ def test_owner_routed_probes(reach_stores):
                                        sc.shift, cand, 1, sc.probe_blocks)
         every = torch.where(row >= 0, row + base, every)
     assert torch.equal(ids, every)
+    assert torch.equal(closure.lookup_plain(table, cand, 1), every)
+    # in five chunks of candidates, the last one short: the same ids
+    window = closure.stack_parts(table, "cpu")[-1] * probe.BLOCK
+    chunk = cand.shape[0] // 5 + 1
+    monkeypatch.setattr(closure, "LOOKUP_CHUNK_ELEMS", chunk * 4 * window)
     assert torch.equal(closure.lookup_plain(table, cand, 1), every)
     hit = ids[: keys.shape[0]]
     assert bool((hit // got.local_capacity == own[: keys.shape[0]]).all())
