@@ -83,9 +83,12 @@ Phases, each printed on its own lines; every check raises on failure:
    ingest batch (the port's canonical k-mers of the FASTQ's first 2^17
    reads), on the 16 B slot layout: ``hash_insert`` into a fresh
    2^27-slot table, again into the same table (all hits), the rehash of
-   a 2^26-slot table into 2^27 slots, and the batch routed by owner into
-   4 shards of 2^25 slots in one launch, each table's sorted rows (shard
-   by shard) equal to the plain version's (the slot layouts may differ:
+   a 2^26-slot table into 2^27 slots, the batch routed by owner into 4
+   shards of 2^25 slots in one launch, the largest merge of phase 22's 8M
+   hash run at its shapes (MERGE_SHAPE), and the batch into 4 shard
+   groups on the card in separate allocations (one windowed launch a
+   group, phase 18's placement), each table's sorted rows (shard by
+   shard) equal to the plain version's (the slot layouts may differ:
    claims race) and its claim counters equal to its occupied slots;
    ``hash_lookup`` on a 4096-query wave and on 2^20 queries, half of
    them random keys, on the one table and on the 4 shards, exact; the
@@ -150,11 +153,12 @@ Phases, each printed on its own lines; every check raises on failure:
     and a markdown report new in ``build/grid/results/``; then ``python
     -m sharkmer_tpu_torch.tools.bench --quick``, whose JSON line must
     report every gene of the panel recovered;
-21. the profilers, each a subprocess: ``tools/ingest_phase.py`` at 2^27
-    keys (the drain path's stages, each drain launching its kernels),
-    then with ``--fastq`` on the 8M cnidaria FASTQ (the host stages of
-    the CLI's ingest, its reads, bases and k-mers those of the committed
-    8M cell); ``tools/cold_start.py`` bare (a fresh process's stages),
+21. the profilers, each a subprocess: ``tools/ingest_phase.py`` at the
+    cell's k, at 2^27 keys (the drain path's stages, each drain
+    launching its kernels) and with ``--fastq`` on the 8M cnidaria FASTQ
+    (the host stages of the CLI's ingest, its reads, bases and k-mers
+    those of the committed 8M cell), in one process;
+    ``tools/cold_start.py`` bare (a fresh process's stages),
     then ``--cli`` on the 1M cnidaria cell: its outputs held to the
     committed cell, and its split of the child's wall (before, inside
     and after ``main()``) summing to that wall within 0.5 s;
@@ -314,6 +318,10 @@ STITCH_SHAPE = (2048, 1 << 16)
 HASH_READS = 1 << 17  # one CLI ingest batch
 HASH_CAP = 1 << 27  # the 1M cell's final hash table
 HASH_SHARDS = 4  # the owner-routed insert and lookup of phase 8
+# phase 8's merge: the largest of phase 22's 8M --chunks 10 hash run, as
+# that run prints it (source slots, source keys, master slots, master keys
+# before, keys in both)
+MERGE_SHAPE = (1 << 26, 37_939_713, 1 << 28, 91_359_173, 20_669_603)
 LOOKUP_WAVE = 4096
 SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep: ~50 ms at the H100's clock
 LOOKUP_MANY = 1 << 20
@@ -629,12 +637,15 @@ def routed_bytes(torch, table, cand) -> int:
                for i, side in enumerate(table.sidecars))
 
 
-def closure_table(np, torch, n_rows: int, k: int):
-    """A table of ``n_rows`` rows from default_rng(4): every k-mer of a
-    random genome of GENOME_BASES bases plus random filler keys, 3/4 of
-    the rows in all, canonical, sorted, sentinel tail. Counts in [1, 40),
-    the genome's at or above CLOSURE_MC but for one in 10^4 (a break in
-    the walk). Returns (keys, counts, n_real, the genome's k-mers)."""
+def closure_table(np, torch, n_rows: int, k: int, device="cuda"):
+    """A table of ``n_rows`` rows on ``device`` from default_rng(4): every
+    k-mer of a random genome of GENOME_BASES bases plus random filler
+    keys, 3/4 of the rows in all, canonical, sorted, sentinel tail.
+    Counts in [1, 40), the genome's at or above CLOSURE_MC but for one in
+    10^4 (a break in the walk); a k-mer the genome holds more than once
+    takes its first occurrence's count (``genome_counts``), so every
+    build is the same table. Returns (keys, counts, n_real, the genome's
+    k-mers)."""
     from sharkmer_tpu_torch.ops.histogram import revcomp
 
     rng = np.random.default_rng(4)
@@ -644,20 +655,34 @@ def closure_table(np, torch, n_rows: int, k: int):
     for j in range(k):
         fwd = (fwd << 2) | genome[j : j + n_k]
     filler = rng.integers(0, 1 << (2 * k), size=n_rows * 3 // 4 - n_k)
-    raw = torch.from_numpy(np.concatenate([fwd, filler])).cuda()
+    raw = torch.from_numpy(np.concatenate([fwd, filler])).to(device)
     uniq = torch.unique(torch.minimum(raw, revcomp(raw, k)))
     n_real = uniq.shape[0]
-    counts = torch.zeros(n_rows, dtype=torch.int64, device="cuda")
-    counts[:n_real] = torch.from_numpy(rng.integers(1, 40, size=n_real)).cuda()
-    on_genome = torch.from_numpy(fwd).cuda()
-    on_genome = torch.searchsorted(
-        uniq, torch.minimum(on_genome, revcomp(on_genome, k)))
+    counts = torch.zeros(n_rows, dtype=torch.int64, device=device)
+    counts[:n_real] = torch.from_numpy(
+        rng.integers(1, 40, size=n_real)).to(device)
     g_counts = rng.integers(CLOSURE_MC, 40, size=n_k)
     g_counts[rng.random(n_k) < 1e-4] = 1
-    counts[on_genome] = torch.from_numpy(g_counts).cuda()
-    keys = torch.full((n_rows,), INT64_MAX, dtype=torch.int64, device="cuda")
+    rows, g_counts = genome_counts(np, torch, uniq, fwd, g_counts, k)
+    counts[rows] = torch.from_numpy(g_counts).to(device)
+    keys = torch.full((n_rows,), INT64_MAX, dtype=torch.int64, device=device)
     keys[:n_real] = uniq
     return keys, counts, n_real, fwd
+
+
+def genome_counts(np, torch, uniq, fwd, g_counts, k: int):
+    """The rows of the sorted canonical keys ``uniq`` that the genome's
+    k-mers ``fwd`` fall on, each once, and the count each takes: that of
+    the k-mer's first occurrence in ``fwd``. Resolved on the host, since
+    an ``index_put_`` with repeated rows leaves undefined on CUDA which
+    of their values lands."""
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    g = torch.from_numpy(fwd)
+    canonical = torch.minimum(g, revcomp(g, k)).numpy()
+    once, first = np.unique(canonical, return_index=True)
+    rows = torch.searchsorted(uniq, torch.from_numpy(once).to(uniq.device))
+    return rows, g_counts[first]
 
 
 def wide_bucket_table(np, torch, k: int):
@@ -841,8 +866,41 @@ def check_luts(torch, name: str, table) -> None:
                 f"own LUT on the launching card")
 
 
+def reused_table(torch, np, reuse: dict, name: str, keys, counts,
+                 fwd=None) -> None:
+    """The guard of ``closure_phase``'s ``reuse``: its first call keeps the
+    table's rows (a host copy) under ``name``; a later call's table must
+    equal them row for row. On a difference it prints the rows that
+    differ, and, given the genome's k-mers ``fwd``, which of them hold a
+    k-mer the genome repeats, then fails."""
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    rows = (keys.cpu(), counts.cpu())
+    kept = reuse.get(name)
+    if kept is None:
+        reuse[name] = rows
+        return
+    differ = torch.nonzero((rows[0] != kept[0])
+                           | (rows[1] != kept[1])).reshape(-1)
+    if differ.numel() and fwd is not None:
+        g = torch.from_numpy(fwd)
+        canonical = torch.minimum(g, revcomp(g, K)).numpy()
+        once, seen = np.unique(canonical, return_counts=True)
+        repeated = torch.searchsorted(rows[0], torch.from_numpy(
+            once[seen > 1]))
+        print(f"{name}: rows {differ[:20].tolist()} differ (counts "
+              f"{rows[1][differ[:20]].tolist()} vs "
+              f"{kept[1][differ[:20]].tolist()}); the genome's repeated "
+              f"k-mers on rows {repeated.tolist()}", flush=True)
+    require(not differ.numel(), f"{name}: {differ.numel()} rows differ "
+            f"from the table whose plain results are reused")
+    print(f"{name}: equal row for row to the table whose plain closure "
+          f"results are reused", flush=True)
+
+
 def closure_phase(torch, np, card: str, latency: dict, layouts,
-                  plain: bool = True, device_times: bool = False) -> dict:
+                  plain: bool = True, device_times: bool = False,
+                  reuse: dict | None = None) -> dict:
     """``reach_closure`` against ``closure_plain`` on a 2^26-row table in
     each of ``layouts`` (name: build(keys, counts, n_real) -> PartTable),
     on ``closure_cases`` and a warm start; ``probe_rows`` against
@@ -856,13 +914,19 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
     adds ``probe_rows``' device time alone and that of an empty kernel on
     its grid (``profiled_ms``, ``probe_floor_ms``): a profiler session
     later in the script, after the CLI runs, has traced no kernel of the
-    port."""
+    port. ``reuse`` (one layout: phases 13 and 18, whose owner shards give
+    the same row ids) keeps the plain closures' results of its first call
+    and gives them to a later one, on a table that ``reused_table`` finds
+    equal to the first's."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
 
     start = time.monotonic()
     keys, counts, n_real, fwd = closure_table(np, torch, PART_ROWS, K)
+    if reuse is not None:
+        require(len(layouts) == 1, "closure_phase: reuse takes one layout")
+        reused_table(torch, np, reuse, "closure table", keys, counts, fwd)
     tables = {name: build(keys, counts, n_real)
               for name, build in layouts.items()}
     torch.cuda.synchronize()
@@ -890,15 +954,25 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
         return start.elapsed_time(end), out
 
     def check(label, table, c0, pre_ids, shape, plain_twice=False,
-              overflow=False):
+              overflow=False, key=None):
         """Kernel against plain on one call at ``shape`` (depth, f_cap,
         f_narrow), then CUDA-event times: the plain run that checked, 10
         kernel runs, and a second plain run when ``plain_twice`` (plain,
         kernel x 10, plain). ``overflow``: the call must overflow (else it
-        must walk past half its depth)."""
+        must walk past half its depth). With ``reuse``, the plain result
+        is kept (or taken) under ``key``; a taken one has no plain time
+        (``plain_ms`` None, ``plain_from`` says whose result it was)."""
+        plain_ms = plain_from = None
         if plain:
-            plain_ms, want = event_ms(lambda: run(
-                table, c0, pre_ids, closure.closure_plain, shape))
+            kept = None if reuse is None else reuse.get(("plain", key))
+            if kept is None:
+                plain_ms, want = event_ms(lambda: run(
+                    table, c0, pre_ids, closure.closure_plain, shape))
+                if reuse is not None:
+                    reuse["plain", key] = [t.cpu() for t in want]
+            else:
+                want = [t.cuda() for t in kept]
+                plain_from = "phase 13"
         got = run(table, c0, pre_ids, closure.reach_closure, shape)
         gs = closure.unpack_state(got[2])
         require(gs[2] if overflow else not gs[2] and gs[1] > shape[0] // 2,
@@ -923,14 +997,14 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
             event_ms(lambda: run(table, c0, pre_ids, closure.reach_closure,
                                  shape))[0]
             for _ in range(10))
-        if plain and plain_twice:
+        if plain_ms is not None and plain_twice:
             plain_ms = (plain_ms + event_ms(lambda: run(
                 table, c0, pre_ids, closure.closure_plain, shape))[0]) / 2
         # levels that probed: up to 3 narrow levels after `done` ran on
         # an empty frontier
         levels = gs[1] - 3 * gs[3]
-        result = {"max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms if plain else None,
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "plain_from": plain_from,
                   "n_vis": gs[0], "iters": gs[1], "done": gs[3],
                   "boundary": int(g_b.numel()),
                   "library_ms": None,  # no torch op runs a BFS closure
@@ -939,7 +1013,9 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
                   "latency_bound_ms": chain_ms(latency, levels),
                   "latency_levels": levels}
         what = "exact" if plain else "ran"
-        versus = f" vs {plain_ms:.4f} ms plain" if plain else ""
+        versus = ("" if not plain else f" vs {plain_ms:.4f} ms plain"
+                  if plain_from is None else
+                  f", plain result reused from {plain_from}")
         print(f"reach_closure: {what} on {label}: {result}; median "
               f"{ms:.4f} ms a call{versus} on {card}", flush=True)
         return result, got
@@ -989,7 +1065,7 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
                 f"{name}, {call}: {len(roots)} roots at (depth, f_cap, "
                 f"f_narrow) {shape}", table, closure_roots(np, roots), None,
                 shape, plain_twice=call == "narrow" and name == "1 partition",
-                overflow=call == "overflow")
+                overflow=call == "overflow", key=call)
         # a re-prefetch from the narrow call's boundary, warm-started with
         # its interior, as pcr/prefetch.py does
         narrow = got["narrow"]
@@ -1009,7 +1085,8 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
                 f"probe_rows: not every one of {n_pre} warm-start keys hit")
         record[f"pre, {name}"] = check(f"{name}, warm start", table,
                                        closure_roots(np, bound), pre_ids,
-                                       (depth, f_cap, f_narrow))[0]
+                                       (depth, f_cap, f_narrow),
+                                       key="warm start")[0]
     del tables
     parts = f"{CLOSURE_PARTS} partitions"
     if parts in layouts:
@@ -1030,6 +1107,8 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
     # buckets past 32 rows at the LUT's bits cap: the probe's rows past
     # the first 32 of a bucket, in the closure and in probe_rows
     keys, counts, n_real, fwd = wide_bucket_table(np, torch, K)
+    if reuse is not None:
+        reused_table(torch, np, reuse, "wide bucket table", keys, counts)
     n_k, shape = fwd.shape[0], (WIDE_BUCKET_DEPTH, f_cap, f_narrow)
     roots = closure_roots(np, fwd[[n_k // 4, 3 * n_k // 4]])
     # PRE_W of the table's keys: genome k-mers (counts >= the floor, so
@@ -1048,7 +1127,7 @@ def closure_phase(torch, np, card: str, latency: dict, layouts,
             f"wide buckets, {name}: the widest bucket holds {widest} rows")
         record[f"wide bucket, {name}"] = check(
             f"{name}, buckets of up to {widest} rows at the bits cap, 2 roots",
-            table, roots, None, shape)[0]
+            table, roots, None, shape, key="wide bucket")[0]
         res, ids = check_probe(
             f"{reach.PRE_W} keys in buckets of up to {widest} rows, {name}",
             table, cand)
@@ -1135,7 +1214,8 @@ def instrument(torch, kernels):
     ctx = types.SimpleNamespace(
         torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
         plain_closures=[], hash_exports=[], shard_exports=[],
-        hash_grows=[], lookup_waves=[], table_calls=[], panel_scans=[])
+        hash_grows=[], lookup_waves=[], table_calls=[], panel_scans=[],
+        merges=[])
 
     def counted(cls, name, event):
         """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -1171,6 +1251,18 @@ def instrument(torch, kernels):
             ctx.table_calls.append("grow"),
             ctx.hash_grows.append(getattr(a[0], "capacity", None) or
                                   a[0].n_shards * a[0].local_capacity)))
+    # each merge's shapes: the source's slots and keys, the master's
+    # slots (grown for the merge) and its keys before and after it
+    merge_from = KmerTable.merge_from
+
+    def merge_shapes(self, other):
+        before = self.n_unique()
+        merge_from(self, other)
+        ctx.merges.append((other.capacity, other.n_unique(), self.capacity,
+                           before, self.n_unique()))
+        return self
+
+    KmerTable.merge_from = merge_shapes
     counted(KmerTable, "lookup_directional",
             lambda a: ctx.lookup_waves.append(len(a[1])))
     counted(ShardedKmerTable, "lookup_directional",
@@ -1275,7 +1367,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     run_log.closures.clear()
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
                    ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
-                   ctx.table_calls, ctx.panel_scans):
+                   ctx.table_calls, ctx.panel_scans, ctx.merges):
         events.clear()
     for fn in kernels.values():
         fn.launches = 0
@@ -1318,6 +1410,13 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
         calls = {c: ctx.table_calls.count(c) for c in ("insert", "merge",
                                                       "grow")}
         print(f"{label}: hash table calls {calls}")
+    if ctx.merges:
+        src, src_keys, dst, dst_keys, after = max(ctx.merges,
+                                                  key=lambda m: m[1])
+        print(f"{label}: the largest of {len(ctx.merges)} hash merges: "
+              f"{src_keys} keys of a {src}-slot table into a {dst}-slot "
+              f"table holding {dst_keys} keys before it, "
+              f"{src_keys + dst_keys - after} of them in both")
     if ctx.lookup_waves:
         waves = sorted(ctx.lookup_waves)
         print(f"{label}: {len(waves)} directional lookup waves of "
@@ -2226,14 +2325,16 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
     ``lookup_plain`` on the card, on one real ingest batch and the 16 B
     slot layout: the batch into a fresh 2^27-slot table, the batch again
     (all hits), the rehash of a 2^26-slot table holding it into 2^27
-    slots, and the batch routed by owner into HASH_SHARDS shards of
-    2^27 / HASH_SHARDS slots in one launch; directional lookups on the
+    slots, the batch routed by owner into HASH_SHARDS shards of
+    2^27 / HASH_SHARDS slots in one launch, phase 22's largest merge
+    (``merge_phase``) and the batch into phase 18's shard groups on the
+    card (``window_phase``); directional lookups on the
     one table and on the shards, a LOOKUP_WAVE wave and LOOKUP_MANY
     queries, half of them random keys. The tables must hold equal rows
     shard by shard (the slot layouts may differ: the kernel's claims
     race) and claim counters equal to their occupied slots; lookups must
-    be equal. Median CUDA-event ms, kernel timed between two plain runs;
-    each insert on a fresh table reset outside the timed span. An
+    be equal. Median CUDA-event ms, the plain insert timed once; each
+    insert on a table reset (or restored) outside the timed span. An
     insert's time includes the wait for its overflow flag (a few us).
     The wave is also timed as the kernel alone (``graph_ms``)."""
     from sharkmer_tpu_torch.kernels import hash as hk
@@ -2252,11 +2353,17 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
         table[0][..., 1].zero_()
         table[1].zero_()
 
-    def timed(kernel, plain, reset_kernel=None, reset_plain=None, reps=10):
-        plain_ms = median_ms(torch, plain, 1, reset_plain)
-        ms = median_ms(torch, kernel, reps, reset_kernel)
-        plain_ms = (plain_ms + median_ms(torch, plain, 1, reset_plain)) / 2
-        return ms, plain_ms
+    def restore(table, saved):
+        table[0].copy_(saved[0])
+        table[1].copy_(saved[1])
+
+    def timed(run, reset_kernel, check, reps=10):
+        """``run()``'s median CUDA-event ms, each run after an untimed
+        ``reset_kernel``; then ``check()`` on its last run's result."""
+        ms = median_ms(torch, run, reps, reset_kernel)
+        torch.cuda.synchronize()
+        check()
+        return ms
 
     def insert_bytes(slots, n_entries, entry_bytes=8):
         """Each entry read once, each slot sector that holds a key read
@@ -2287,12 +2394,21 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
                     f"hash_insert: n_total {total} != {rounds} x {n_valid}")
         new_bytes, old_bytes, sec = insert_bytes(kern[0], n)
         if label == "1 table":
-            hits_ms, hits_plain_ms = timed(
-                lambda: hk.hash_insert(*kern, kmers),
-                lambda: hk.insert_plain(*plain, kmers))
-        ms, plain_ms = timed(lambda: hk.hash_insert(*kern, kmers),
-                             lambda: hk.insert_plain(*plain, kmers),
-                             lambda: reset(kern), lambda: reset(plain))
+            # all hits: into the table as one insert left it, each time
+            once = fresh(shape)
+            hk.insert_plain(*once, kmers)
+            hits_plain_ms = median_ms(
+                torch, lambda: hk.insert_plain(*plain, kmers), 1,
+                lambda: restore(plain, once))
+            hits_ms = timed(lambda: hk.hash_insert(*kern, kmers),
+                            lambda: restore(kern, once),
+                            lambda: same_rows(torch, "hash_insert", kern,
+                                              plain, f"{what}, hits"))
+            del once
+        plain_ms = median_ms(torch, lambda: hk.insert_plain(*plain, kmers), 1,
+                             lambda: reset(plain))
+        ms = timed(lambda: hk.hash_insert(*kern, kmers), lambda: reset(kern),
+                   lambda: same_rows(torch, "hash_insert", kern, plain, what))
         print(f"hash_insert: exact on {what}: {distinct} keys, claim "
               f"counters {kern[1].tolist()}, n_total {n_valid}; median "
               f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain on {card}",
@@ -2324,10 +2440,13 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
     torch.cuda.synchronize()
     same_rows(torch, "hash_insert", new_k, new_p, "the rehash")
     same_rows(torch, "hash_insert", new_k, src, "the rehash (source rows)")
-    rehash_ms, rehash_plain_ms = timed(
-        lambda: hk.hash_insert(*new_k, src[0]),
-        lambda: hk.insert_plain(*new_p, src[0]),
-        lambda: reset(new_k), lambda: reset(new_p), reps=5)
+    rehash_plain_ms = median_ms(torch,
+                                lambda: hk.insert_plain(*new_p, src[0]), 1,
+                                lambda: reset(new_p))
+    rehash_ms = timed(lambda: hk.hash_insert(*new_k, src[0]),
+                      lambda: reset(new_k),
+                      lambda: same_rows(torch, "hash_insert", new_k, new_p,
+                                        "the rehash, timed"), reps=5)
     # the source's 16 B slots read once; the new table's sectors as above
     rehash_bytes, rehash_old, _ = insert_bytes(new_k[0], src[0].shape[0], 16)
     print(f"hash_insert: exact on the rehash of {src[0].shape[0]} slots into "
@@ -2339,6 +2458,8 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
                       rehash_old - 4 * src[0].shape[0]) / HBM_BYTES_PER_MS)
     del src, new_k, new_p
     torch.cuda.empty_cache()
+    insert.update(merge_phase(torch, card, timed))
+    insert.update(window_phase(torch, kmers, n_valid, card, timed))
 
     # directional queries: half the batch's k-mers (half of those in
     # reverse-complement form), half random keys
@@ -2411,6 +2532,125 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
     return {"hash_insert": insert, "hash_lookup": lookup}
 
 
+def window_phase(torch, kmers, n_valid: int, card: str, timed) -> dict:
+    """Phase 8's batch into HASH_SHARDS shards of HASH_CAP / HASH_SHARDS
+    slots placed as phase 18 places them on one card (ONE_CARD_GROUPS:
+    groups of shards in separate allocations): one windowed
+    ``hash_insert`` a group, each group held to the windowed
+    ``insert_plain`` (rows, claim counters) and the groups' n_total to
+    the batch's valid k-mers; the groups' launches timed together
+    (``timed``)."""
+    from sharkmer_tpu_torch.device import shard_groups
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    S, cap = HASH_SHARDS, HASH_CAP // HASH_SHARDS
+    groups = shard_groups(S, len(ONE_CARD_GROUPS))
+
+    def fresh():
+        return [(hk.new_slots((hi - lo, cap), "cuda"),
+                 torch.zeros(hi - lo, dtype=torch.int64, device="cuda"))
+                for lo, hi in groups]
+
+    def reset(tables):
+        for slots, claims in tables:
+            slots[..., 0].fill_(INT64_MAX)
+            slots[..., 1].zero_()
+            claims.zero_()
+
+    def insert(tables, fn, **kw):
+        for (lo, _), (slots, claims) in zip(groups, tables):
+            fn(slots, claims, kmers, shard_lo=lo, n_shards=S, **kw)
+
+    kern, plain = fresh(), fresh()
+    what = (f"{kmers.numel()} k-mers into {S} shards of {cap} slots in "
+            f"{len(groups)} groups on {','.join(ONE_CARD_GROUPS)}")
+    plain_ms = median_ms(torch, lambda: insert(plain, hk.insert_plain), 1,
+                         lambda: reset(plain))
+
+    def check():
+        for d, (got, want) in enumerate(zip(kern, plain)):
+            same_rows(torch, "hash_insert", got, want, f"{what}, group {d}")
+        total = sum(int(hk.as_u32(hk.slot_counts(g)).sum()) for g, _ in kern)
+        require(total == n_valid,
+                f"hash_insert: n_total {total} != {n_valid} ({what})")
+
+    ms = timed(lambda: insert(kern, hk.hash_insert), lambda: reset(kern),
+               check)
+    # the batch read once, each slot sector that holds a key read and
+    # written once
+    sectors = sum(touched_sectors(torch, g)["slot_sectors"] for g, _ in kern)
+    print(f"hash_insert: exact on {what}: median {ms:.4f} ms for "
+          f"{len(groups)} windowed launches vs {plain_ms:.4f} ms plain on "
+          f"{card}", flush=True)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return {
+        "window_ms": ms, "window_plain_ms": plain_ms,
+        "window_bound_ms": (8 * kmers.numel() + 64 * sectors)
+        / HBM_BYTES_PER_MS}
+
+
+def merge_phase(torch, card: str, timed) -> dict:
+    """The largest merge of phase 22's 8M ``--chunks 10`` hash run, at
+    its shapes (MERGE_SHAPE, printed by that run): a chunk table's keys
+    into a master that holds some of them; random keys below 2^38
+    (19-mers) from a seeded generator, counts 1-9. The master after the
+    merge held to ``insert_plain``'s (rows, claim counter); timed
+    (``timed``), each run from the master as it was."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    src_cap, src_keys, dst_cap, dst_keys, shared = MERGE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def keys(n):
+        return torch.randint(0, 1 << (2 * K), (n,), device="cuda",
+                             generator=gen)
+
+    def table(cap, entries):
+        slots = hk.new_slots((cap,), "cuda")
+        claims = torch.zeros(1, dtype=torch.int64, device="cuda")
+        hk.hash_insert(slots, claims, entries, torch.randint(
+            1, 10, entries.shape, dtype=torch.int32, device="cuda",
+            generator=gen))
+        return slots, claims
+
+    master_keys = keys(dst_keys)
+    base = table(dst_cap, master_keys)
+    src = table(src_cap, torch.cat([master_keys[:shared],
+                                    keys(src_keys - shared)]))
+    del master_keys
+    kern = (base[0].clone(), base[1].clone())
+    plain = (base[0].clone(), base[1].clone())
+    what = (f"the merge of a {src_cap}-slot table holding {int(src[1])} keys "
+            f"into a {dst_cap}-slot table holding {int(base[1])}")
+
+    def restore(table):
+        table[0].copy_(base[0])
+        table[1].copy_(base[1])
+
+    plain_ms = median_ms(torch, lambda: hk.insert_plain(*plain, src[0]), 1,
+                         lambda: restore(plain))
+    ms = timed(lambda: hk.hash_insert(*kern, src[0]), lambda: restore(kern),
+               lambda: same_rows(torch, "hash_insert", kern, plain, what),
+               reps=5)
+    # the source's 16 B slots read once; the master's sectors that hold a
+    # key of the source read and written once
+    hit = torch.zeros(dst_cap, dtype=torch.bool, device="cuda")
+    occupied = hk.slot_keys(kern[0]) != INT64_MAX
+    hit[occupied] = torch.isin(hk.slot_keys(kern[0])[occupied],
+                               hk.slot_keys(src[0]))
+    sectors = torch.unique_consecutive(
+        torch.nonzero(hit).reshape(-1) >> 1).numel()
+    print(f"hash_insert: exact on {what} ({int(kern[1])} after): median "
+          f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain on {card}",
+          flush=True)
+    del base, src, kern, plain, hit, occupied
+    torch.cuda.empty_cache()
+    return {
+        "merge_ms": ms, "merge_plain_ms": plain_ms,
+        "merge_bound_ms": (16 * src_cap + 64 * sectors) / HBM_BYTES_PER_MS}
+
+
 def peer_latency(torch, launch, other) -> float:
     """ns per dependent load of a kernel on ``launch`` along a cold ring
     of 2^23 128 B lines (1 GB) on the card ``other``: each load crosses
@@ -2447,7 +2687,7 @@ def peer_latency(torch, launch, other) -> float:
 
 
 def groups_phase(torch, np, card: str, latency: dict, devices,
-                 tag: str) -> dict:
+                 tag: str, reuse: dict | None = None) -> dict:
     """Phase 18's kernels on HASH_SHARDS owner shards placed on
     ``devices`` (``SHARKMER_TORCH_DEVICES``: shard ``s`` on ``devices[s *
     D // S]``, one group of contiguous shards a device, each group in its
@@ -2464,7 +2704,8 @@ def groups_phase(torch, np, card: str, latency: dict, devices,
       against ``lookup_plain`` over the groups and the one-launch table;
       the wave also as the kernel alone (``graph_ms``);
     * phase 13's closures and warm-start probe over the closure table's
-      owner shards on ``devices``, launched on ``devices[0]``.
+      owner shards on ``devices``, launched on ``devices[0]``; with
+      ``reuse`` (``closure_phase``), against phase 13's plain results.
 
     Times are CUDA events on ``devices[0]`` where every group is there,
     else the host clock around work that ends in a synchronize of every
@@ -2644,7 +2885,8 @@ def groups_phase(torch, np, card: str, latency: dict, devices,
 
     closures = closure_phase(torch, np, card, latency, {
         tag: lambda keys, counts, n_real: shard_table(
-            torch, keys, counts, n_real, CLOSURE_SHARDS, K, devices)})
+            torch, keys, counts, n_real, CLOSURE_SHARDS, K, devices)},
+        reuse=reuse)
     if not one_card:
         late_closure(torch, np, devices)
     return {f"hash_insert, {tag}": insert_rec,
@@ -2805,7 +3047,8 @@ def peer_latencies(torch, cards, card: str, latency: dict) -> dict:
 
 
 def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
-                    record: dict, runs: dict, load: bool = True) -> str:
+                    record: dict, runs: dict, load: bool = True,
+                    reuse: dict | None = None) -> str:
     """Phase 18 on one placement, ``devices`` (names, one a shard group):
     ``groups_phase``, then the 1M cell with ``--n-shards`` N_SHARDS under
     ``SHARKMER_TORCH_DEVICES``: sorted, hash ``--mirror device`` and,
@@ -2815,7 +3058,8 @@ def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
     torch = ctx.torch
     label = f"{len(devices)} groups on {len(set(devices))} card(s)"
     record.update(groups_phase(torch, np, card, latency,
-                               [torch.device(d) for d in devices], label))
+                               [torch.device(d) for d in devices], label,
+                               reuse))
     os.environ[DEVICES_ENV] = ",".join(devices)
     try:
         runs[f"{tag}_sorted"] = drive_main_path(
@@ -2899,15 +3143,19 @@ def tools_phase() -> None:
 
 def profile_phase() -> None:
     """Phase 21: the port's profilers, each a subprocess on the card.
-    ``tools/ingest_phase.py`` at 2^27 keys (each drain stage must launch
-    its kernels), then over the 8M cnidaria FASTQ at the cell's k (its
-    reads, bases and k-mers those of the committed 8M cell);
-    ``tools/cold_start.py`` bare, then ``--cli`` on the 1M cnidaria cell
-    (its outputs held to the committed cell, the three parts of its
-    split within SPLIT_SLACK_S of the child's wall)."""
+    ``tools/ingest_phase.py`` at the cell's k: the drain path's stages
+    at 2^27 keys (each must launch its kernels), then the host stages of
+    the CLI's ingest over the 8M cnidaria FASTQ (its reads, bases and
+    k-mers those of the committed 8M cell); ``tools/cold_start.py``
+    bare, then ``--cli`` on the 1M cnidaria cell (its outputs held to
+    the committed cell, the three parts of its split within
+    SPLIT_SLACK_S of the child's wall)."""
     import yaml
 
-    record = run_tool("ingest_phase", "--width", "27", timeout=300)
+    n_reads = 8 * M
+    record = run_tool("ingest_phase", "--width", "27", "--fastq",
+                      FASTQS["cnidaria"], "--max-reads", str(n_reads),
+                      "--k", str(K), timeout=600)
     stages = record["stages"]
     for label, kernels in (("run_starts (fwd)", ("run_starts",)),
                            ("ghosted drain", ("run_ends",)),
@@ -2916,10 +3164,7 @@ def profile_phase() -> None:
                         if key.startswith(label))
         require(all(launches[name] >= 1 for name in kernels),
                 f"ingest_phase: {label} launched {launches}")
-    n_reads = 8 * M
-    fastq = run_tool("ingest_phase", "--fastq", FASTQS["cnidaria"],
-                     "--max-reads", str(n_reads), "--k", str(K),
-                     timeout=600)["fastq"]
+    fastq = record["fastq"]
     sample = f"synthetic-seed0_{n_reads}"
     with open(os.path.join(oracle_of("cnidaria", n_reads),
                            f"{sample}.stats.yaml")) as f:
@@ -3199,8 +3444,10 @@ def main() -> int:
 
         phase(f"13. owner-routed reach_closure and probe_rows vs plain "
               f"PyTorch on {CLOSURE_SHARDS} shards")
+        # phase 18 reuses these plain closures on its table, held equal
+        reuse = {}
         record.update(closure_phase(torch, np, card, latency,
-                                    owner_layouts(torch)))
+                                    owner_layouts(torch), reuse=reuse))
 
         phase(f"14. main path: 1M reads, --n-shards {N_SHARDS} (sorted, "
               f"reach closure)")
@@ -3251,7 +3498,8 @@ def main() -> int:
                 record["peer_dram_ns"] = peer_latencies(torch, cards, card,
                                                         latency)
             group_labels[tag] = (placement_phase(ctx, np, card, latency, tag,
-                                                 devices, record, runs),
+                                                 devices, record, runs,
+                                                 reuse=reuse),
                                  len(devices))
         if "cards" not in placements:
             print("phase 18: the cross-card part (and its stream-ordering "
@@ -3275,8 +3523,8 @@ def main() -> int:
         phase("20. the tools: run_grid on the metazoa 1M cell, bench --quick")
         tools_phase()
 
-        phase("21. the profilers: ingest_phase at 2^27 and on the 8M FASTQ, "
-              "cold_start bare and --cli on the 1M cell")
+        phase("21. the profilers: ingest_phase at 2^27 keys and on the 8M "
+              "FASTQ, cold_start bare and --cli on the 1M cell")
         profile_phase()
 
         phase(f"22. chunked spectra at depth: the reference against "
@@ -3439,8 +3687,8 @@ def main() -> int:
                     owned = record[f"{call}, {label}"]
                     call = call.replace(" ", "_")
                     rec.update({f"{tag}_{call}_{key}": owned[key] for key in (
-                        "ms", "plain_ms", "bound_ms", "latency_bound_ms",
-                        "max_abs_err", "n_vis", "iters")})
+                        "ms", "plain_ms", "plain_from", "bound_ms",
+                        "latency_bound_ms", "max_abs_err", "n_vis", "iters")})
                     if tag == "cards":
                         # every level's probe chain ending in a peer's DRAM
                         peer_ns = max(record["peer_dram_ns"].values())

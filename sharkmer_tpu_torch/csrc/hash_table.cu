@@ -7,8 +7,8 @@
 // is S such tables, in one [S, cap] allocation or in groups of them, and each
 // key lives in the shard owner(key, S) (mix64.cuh: the high bits of mix64).
 // A key's home slot is mix64(key) & (cap - 1) in its shard, the SplitMix64
-// finalizer's low bits; collisions probe linearly. A slot goes from empty to a key once and never
-// changes again.
+// finalizer's low bits; collisions probe linearly. A slot goes from empty to
+// a key once and never changes again.
 //
 // They replace the XLA programs of sharkmer_tpu/ops/hashtable.py (no Pallas
 // kernel there: torch has no op that inserts into or probes a hash table):
@@ -24,12 +24,13 @@
 // What bounds them: random 32 B sectors of device memory. A 2^27-slot table is
 // 2 GiB, far past the 50 MB L2, so every entry's first probe misses to DRAM,
 // and the work is the number of sectors touched, not the bytes streamed. The
-// design spends one sector an entry where it can:
+// design spends one sector and as few atomics an entry as it can:
 //   * a slot holds its key and its count in one 16 B load (ld.global.cg: L2,
 //     the point of coherence of the atomics, never a stale L1 line). A hit
-//     adds to the sector it just loaded; a claim CASes the key word and adds
-//     to the count word of that same sector, already in L2. The two-array
-//     layout this replaces paid a key sector and a count sector an entry;
+//     adds to the sector it just loaded; a claim swaps the whole slot, key
+//     and count, in one 16 B compare-and-swap of that same sector, already
+//     in L2. The two-array layout this replaces paid a key sector and a
+//     count sector an entry;
 //   * owner routing inside the kernel: each entry's shard comes from the hash
 //     it needs for its home slot anyway, so a sharded insert or lookup reads
 //     its batch once, in one launch, where S launches on S masked copies
@@ -51,20 +52,29 @@
 // The rehash of a grow and a merge feed the insert another table's slots
 // ([n, 2] int64): key and count in one 16 B load, empty slots skipped. A
 // sharded grow is one launch: the owner does not depend on the capacity, so
-// every key routes to the shard it came from.
+// every key routes to the shard it came from. That order is already near the
+// destination's address order: a source key's home in a table of cap_d slots
+// is its slot in the source (within its probe run) plus a multiple of cap_s.
 //
 // hash_insert, per entry: load the slot; if it holds the entry's key, add
 // (unless the loaded count is at or above SAT_THRESHOLD, 0xE0000000: the JAX
 // table's freeze, read per entry where JAX reads it per round; the two agree
 // unless one batch carries a count across the threshold, ~3.76e9 adds); if it
-// is empty, CAS the key word: a thread that claims the slot adds to its zero
-// count, one that finds its own key there re-reads the count (an L2 hit) and
-// adds as on a hit; any other key steps to the next slot. All entries of one
-// key follow the same probe sequence and find the same slot, whatever order
-// they run in. The add is a 32-bit atomicAdd, modulo 2^32 as JAX's u32
-// scatter-add. Probes are capped at `cap`; a thread that runs out sets
-// *overflow, and the wrapper raises on it (the growth rule keeps the load
-// at 0.7). Hot keys still serialise their atomicAdds on one address.
+// is empty, claim it with one 16 B compare-and-swap of the whole slot, the
+// key and the amount as its count (atom.global.cas.b128, sm_90; an empty
+// slot's count and pad words are 0): a thread that finds its own key there
+// adds as on a hit, one that finds another key steps to the next slot. One
+// atomic a new key, where a CAS of the key word and then an add took two; a
+// hit is a load and one add. All entries of one key follow the same probe
+// sequence and find the same slot, whatever order they run in. The add is a
+// 32-bit atomicAdd, modulo 2^32 as JAX's u32 scatter-add. Probes are capped
+// at `cap`; a thread that runs out sets *overflow, and the wrapper raises on
+// it (the growth rule keeps the load at 0.7). Hot keys still serialise their
+// atomicAdds on one address, and a batch in the reads' order sends a warp's
+// 32 loads to 32 unrelated sectors: a partition of the batch into home
+// windows, with each key's amounts summed in shared memory before one
+// insert, was built and timed against this kernel and lost at every shape
+// but an all-hits batch (PERF.md).
 //
 // hash_lookup, per query: canonicalize when k > 0 (min of the key and its
 // reverse complement), route, then probe with one 16 B load a step until the
@@ -117,13 +127,6 @@ __device__ __forceinline__ void load_slot(const u64* p, u64& key, u64& word) {
                : "memory");
 }
 
-// The slot's count alone, through L2 (after a lost claim race).
-__device__ __forceinline__ unsigned int load_count(const u64* p) {
-  unsigned int c;
-  asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(c) : "l"(p + 1) : "memory");
-  return c;
-}
-
 // One 16 B slot of a table that does not change during the call.
 __device__ __forceinline__ void load_slot_nc(const u64* p, u64& key,
                                              u64& word) {
@@ -144,7 +147,30 @@ __device__ __forceinline__ int shard_of(u64 h, int n_shards) {
   return n_shards > 1 ? shk::owner_of_hash(h, n_shards) : 0;
 }
 
-// Insert one entry; returns true when this thread claimed an empty slot.
+// Claim the empty slot p for `key` with `amount` as its count, key and count
+// in one 16 B compare-and-swap (sm_90; an empty slot's count and pad words
+// are 0): true when this thread claimed it; else `prev` holds the key found
+// there, and when that is `key`, the amount is added as on a hit.
+__device__ __forceinline__ bool claim(u64* p, u64 key, unsigned int amount,
+                                      u64& prev) {
+  u64 word;
+  asm volatile(
+      "{\n\t.reg .b128 d, b, c;\n\t"
+      "mov.b128 b, {%2, %3};\n\t"
+      "mov.b128 c, {%4, %5};\n\t"
+      "atom.global.cas.b128 d, [%6], b, c;\n\t"
+      "mov.b128 {%0, %1}, d;\n\t}"
+      : "=l"(prev), "=l"(word)
+      : "l"(kEmpty), "l"(0ull), "l"(key), "l"(static_cast<u64>(amount)),
+        "l"(p)
+      : "memory");
+  if (prev == kEmpty) return true;
+  if (prev == key) add_count(p, static_cast<unsigned int>(word), amount);
+  return false;
+}
+
+// Insert one entry whose key hashes to `h`; returns true when this thread
+// claimed an empty slot.
 __device__ __forceinline__ bool insert_one(u64* table, u64 mask, int64_t cap,
                                            u64 h, u64 key,
                                            unsigned int amount,
@@ -163,15 +189,9 @@ __device__ __forceinline__ bool insert_one(u64* table, u64 mask, int64_t cap,
       return false;
     }
     if (cur == kEmpty) {
-      const u64 prev = atomicCAS(p, kEmpty, key);
-      if (prev == kEmpty) {  // claimed: the count is 0
-        add_count(p, 0u, amount);
-        return true;
-      }
-      if (prev == key) {
-        add_count(p, load_count(p), amount);
-        return false;
-      }
+      u64 prev;
+      if (claim(p, key, amount, prev)) return true;
+      if (prev == key) return false;
     }
     slot = (slot + 1) & mask;
   }

@@ -33,7 +33,9 @@ path and the test oracle), on the same layout and the same routing:
 ``insert_plain`` is the JAX claim/probe round loop, ``lookup_plain`` the
 JAX probe loop. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/hash_table.cu`` on the current stream, or raises; a sharded call
-is one launch (an insert into groups: one a group).
+is one launch (an insert into groups: one a group). The insert kernel
+runs a thread an entry: a hit is one load and one add, a claim one 16 B
+compare-and-swap that writes the key and its count together.
 ``<wrapper>.launches`` counts the wrapper's kernel launches. The
 kernel's claims race, so its slot layout may differ from the plain
 version's; the table's contents (each key and its count) and

@@ -8,10 +8,11 @@ probe loops). Counts are integers, so every comparison is exact: the
 table's contents, the grown capacity, lookups, histograms, totals and
 primer scans (compared as sorted pairs), on the 16 B slot layout. A
 numpy model of the CUDA kernel's per-entry protocol (one 16 B slot load,
-CAS claim, freeze-checked add, the claim counter, owner routing), run
-under random interleavings of its threads, must give the JAX table's
-contents too, shard for shard, with claim counters equal to the occupied
-slots: the atomics' order does not matter.
+a 16 B compare-and-swap that claims a slot with key and count, a
+freeze-checked add, the claim counter, owner routing and the window of a
+shard group), run under random interleavings of its threads, must give
+the JAX table's contents too, shard for shard, with claim counters equal
+to the occupied slots: the atomics' order does not matter.
 """
 
 import collections
@@ -435,32 +436,38 @@ def _mix64_int(x: int) -> int:
     return x ^ (x >> 33)
 
 
-def kernel_model(keys, counts, claims, kmers, amounts, rng):
-    """``hash_insert_kernel`` thread by thread, in place, on S owner
-    shards (``keys[s]``, ``counts[s]``: Python ints, SENTINEL for an
-    empty key). Each step is one memory action of one thread: the 16 B
-    load of a slot (key and count at once), the CAS of its key word, the
-    re-read of the count after a CAS that found the thread's own key, the
-    add; every step runs a thread drawn at random, so the threads
-    interleave as racing warps may. A thread that claims a slot counts
-    it in its block's counter for its shard, and the blocks' counters
-    reach ``claims`` when the launch ends."""
-    n_shards, cap = len(keys), len(keys[0])
+def kernel_model(keys, counts, claims, kmers, amounts, rng,
+                 shard_lo: int = 0, n_shards=None):
+    """``hash_insert_kernel`` thread by thread, in place, on the
+    ``n_local`` shards ``[shard_lo, shard_lo + n_local)`` of an
+    ``n_shards``-way owner route (``keys[s]``, ``counts[s]``: Python ints,
+    SENTINEL for an empty key; by default every shard of the route);
+    entries that a shard outside the window owns are skipped. Each step
+    is one memory action of one thread: the 16 B load of a slot (key and
+    count at once), the 16 B compare-and-swap that claims an empty slot
+    with the key and the amount as its count (returning the slot as it
+    was), the add; every step runs a thread drawn at random, so the
+    threads interleave as racing warps may. A thread that claims a slot
+    counts it in its block's counter for its shard, and the blocks'
+    counters reach ``claims`` when the launch ends."""
+    n_local, cap = len(keys), len(keys[0])
+    n_shards = n_local if n_shards is None else n_shards
     threads = []
     for km, a in zip(kmers, amounts):
         if int(km) == SENTINEL:
             continue
         h = _mix64_int(int(km))
-        shard = (h >> 40) % n_shards if n_shards > 1 else 0
-        threads.append({"key": int(km), "amount": int(a), "shard": shard,
-                        "slot": h & (cap - 1), "state": "load", "probes": 0,
-                        "claimed": False})
-    block = [0] * n_shards
+        local = ((h >> 40) % n_shards if n_shards > 1 else 0) - shard_lo
+        if 0 <= local < n_local:
+            threads.append({"key": int(km), "amount": int(a),
+                            "shard": local, "slot": h & (cap - 1),
+                            "state": "load", "probes": 0, "claimed": False})
+    block = [0] * n_local
     while threads:
         i = int(rng.integers(len(threads)))
         t = threads[i]
         tk, tc = keys[t["shard"]], counts[t["shard"]]
-        slot, done = t["slot"], False
+        slot = t["slot"]
 
         def freeze_check(count):
             return "add" if t["amount"] != 0 and count < SAT_THRESHOLD \
@@ -475,18 +482,16 @@ def kernel_model(keys, counts, claims, kmers, amounts, rng):
             else:
                 t["slot"], t["probes"] = (slot + 1) & (cap - 1), t["probes"] + 1
         elif t["state"] == "cas":
-            prev = tk[slot]
-            if prev == SENTINEL:
-                tk[slot] = t["key"]
+            prev, count = tk[slot], tc[slot]
+            if prev == SENTINEL:  # an empty slot's count is 0
+                tk[slot], tc[slot] = t["key"], t["amount"]
                 t["claimed"] = True
-                t["state"] = freeze_check(0)
+                t["state"] = "done"
             elif prev == t["key"]:
-                t["state"] = "reload"
+                t["state"] = freeze_check(count)
             else:
                 t["slot"], t["state"] = (slot + 1) & (cap - 1), "load"
                 t["probes"] += 1
-        elif t["state"] == "reload":
-            t["state"] = freeze_check(tc[slot])
         else:  # add
             tc[slot] = (tc[slot] + t["amount"]) & 0xFFFFFFFF
             t["state"] = "done"
@@ -495,7 +500,7 @@ def kernel_model(keys, counts, claims, kmers, amounts, rng):
             block[t["shard"]] += t["claimed"]
             threads[i] = threads[-1]
             threads.pop()
-    for s in range(n_shards):
+    for s in range(n_local):
         claims[s] += block[s]
 
 
@@ -541,3 +546,98 @@ def test_kernel_protocol_is_order_independent(seed, n_shards):
     assert got == want
     assert sum(len(g) for g in got) == j.n_unique()
     assert any(g.get(12345) == SAT_THRESHOLD for g in got)
+
+
+def _model_tables(n_local: int, cap: int):
+    return ([[SENTINEL] * cap for _ in range(n_local)],
+            [[0] * cap for _ in range(n_local)], [0] * n_local)
+
+
+def _contents(keys, counts) -> list[dict]:
+    return [{key: c for key, c in zip(ks, cs) if key != SENTINEL}
+            for ks, cs in zip(keys, counts)]
+
+
+# (S of the route, the window's first shard, its shards)
+WINDOWS = {"shard 0": (4, 0, 1), "shards 1-3": (4, 1, 3),
+           "shards 2-3": (4, 2, 2)}
+
+
+@pytest.mark.parametrize("layout", sorted(WINDOWS))
+@pytest.mark.parametrize("seed", range(2))
+def test_kernel_protocol_in_a_window(seed, layout):
+    """The batches of ``test_kernel_protocol_is_order_independent`` into
+    one group of a 4-way route (a shard group of a table on several
+    devices, one windowed launch): under any interleaving the group's
+    shards hold the JAX sharded table's contents for those shards, each
+    claim counter equals its shard's occupied slots, and the entries
+    other groups own are skipped."""
+    rng = np.random.default_rng(200 + seed)
+    n_shards, lo, n_local = WINDOWS[layout]
+    cap = (1 << 9) // n_shards
+    keys, counts, claims = _model_tables(n_local, cap)
+    j = JaxShardedTable.create(21, make_mesh(n_shards), local_capacity=cap)
+    frozen = np.array([12345], np.uint64)
+    j = j.insert_kmers(frozen, np.array([SAT_THRESHOLD], np.uint32))
+    kernel_model(keys, counts, claims, frozen, [SAT_THRESHOLD], rng, lo,
+                 n_shards)
+    for _ in range(3):
+        distinct = rng.integers(0, 1 << 42, size=60, dtype=np.uint64)
+        batch = rng.choice(np.concatenate([distinct, frozen]), size=300)
+        batch[rng.random(300) < 0.1] = EMPTY
+        amounts = rng.integers(0, 4, size=300).astype(np.uint32)
+        j = j.insert_kmers(batch, amounts)
+        dev = [SENTINEL if b == EMPTY else int(b) for b in batch]
+        kernel_model(keys, counts, claims, dev, amounts.tolist(), rng, lo,
+                     n_shards)
+    got = _contents(keys, counts)
+    assert claims == [len(g) for g in got]
+    jk, jc = np.asarray(j.keys), np.asarray(j.counts)
+    want = [{int(key): int(c) for key, c in zip(jk[s], jc[s])
+             if key != EMPTY} for s in range(lo, lo + n_local)]
+    assert got == want
+    assert 0 < sum(len(g) for g in got) < j.n_unique()
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_kernel_freeze_is_read_per_entry(n_shards):
+    """One batch carries a key from SAT_THRESHOLD - 2 past the threshold
+    (5 entries of it): JAX reads its count once a round and adds the
+    round's sum, SAT_THRESHOLD + 3. The kernel adds once for each entry
+    that read the count below the threshold, SAT_THRESHOLD to
+    SAT_THRESHOLD + 3 by the interleaving (the documented difference of
+    the freeze read, ~3.76e9 adds into one key); every other key equals
+    JAX's."""
+    rng = np.random.default_rng(7)
+    cap = (1 << 8) // n_shards
+    key = 987654321
+    if n_shards == 1:
+        _, j = both(21, cap)
+    else:
+        j = JaxShardedTable.create(21, make_mesh(n_shards),
+                                   local_capacity=cap)
+    others = rng.integers(0, 1 << 42, size=20, dtype=np.uint64)
+    batch = np.concatenate([np.full(5, key, np.uint64), others, others[:7]])
+    batch = batch[rng.permutation(batch.shape[0])]
+    j = j.insert_kmers(np.array([key], np.uint64),
+                       np.array([SAT_THRESHOLD - 2], np.uint32))
+    j = j.insert_kmers(batch, np.ones(batch.shape[0], np.uint32))
+    if n_shards == 1:
+        want = j.to_dict()
+    else:
+        jk, jc = np.asarray(j.keys), np.asarray(j.counts)
+        want = {int(k): int(c) for k, c in zip(jk.reshape(-1), jc.reshape(-1))
+                if k != EMPTY}
+    assert want[key] == SAT_THRESHOLD + 3
+    per_entry = set()
+    for _ in range(20):
+        keys, counts, claims = _model_tables(n_shards, cap)
+        kernel_model(keys, counts, claims, [key], [SAT_THRESHOLD - 2], rng)
+        kernel_model(keys, counts, claims, batch.tolist(),
+                     [1] * batch.shape[0], rng)
+        got = {k: c for g in _contents(keys, counts) for k, c in g.items()}
+        assert {k: c for k, c in got.items() if k != key} == \
+            {k: c for k, c in want.items() if k != key}
+        per_entry.add(got[key])
+    assert per_entry <= set(range(SAT_THRESHOLD, SAT_THRESHOLD + 4))
+    assert per_entry != {SAT_THRESHOLD + 3}
