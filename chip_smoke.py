@@ -17,7 +17,9 @@ shard groups that ``SHARKMER_TORCH_DEVICES`` lists (the code path of
 four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``). ``--long-k`` runs
 phases 1, 2 and 23 alone (k=31); ``--entries`` phases 1, 2, phase 4's
 run and phase 24 (the record-stream entries); ``--panels`` phases 1, 2
-and 25 (the built-in panels).
+and 25 (the built-in panels); ``--waves`` phases 1, 2 and the lookup
+wave path's checks (``wave_checks``, ``late_wave``) on tables of random
+keys, with the wave's times at 4^0 to 4^10 queries (``wave_times``).
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -94,12 +96,24 @@ Phases, each printed on its own lines; every check raises on failure:
    them random keys, on the one table and on the 4 shards, exact; the
    wave also timed as the kernel alone (a CUDA graph of back-to-back
    launches); byte bounds on the slot layout beside the two-array
-   layout's on the same slots;
+   layout's on the same slots; then the lookup wave path the tables'
+   ``lookup_directional`` takes (numpy in, numpy out, one
+   ``shk_hash_lookup_wave`` call on the thread's own stream), on both
+   tables: waves of 0, 1, 5, 64, 4097, 4096 and 2^20 queries, both
+   sentinels among them, each exact against ``lookup_plain`` and one
+   ``hash_lookup`` launch; 7 threads issuing 64 waves each at once,
+   every answer exact; and the one table's slots copied into a new
+   table behind ``torch.cuda._sleep`` on the current stream and looked
+   up at once through the wave path, exact (the table's ``WriteFence``
+   orders the wave's stream after the copy);
 9. the 1M cell with ``--backend hash`` (``--mirror auto`` resolves to the
    host mirror: the hash table has no reach closure) and ``--save-table
    build/chip_smoke/hash_1M.npz``, held to the same oracle as phase 4;
 10. the 1M cell with ``--backend hash --mirror device`` (directional
-    lookups on ``hash_lookup``);
+    lookups on ``hash_lookup``, a wave each); then its table's waves
+    timed numpy to numpy (``cli_wave_times``: the run's median and
+    largest wave, 4096 and 2^20 queries, and the foreign call alone;
+    waves a second from one thread and from 7);
 11. ``--load-table`` of phase 9's checkpoint with no FASTQ: into the
     sorted backend (which then runs sPCR on the reach closure) and into
     the hash backend, each held to the 1M oracle;
@@ -111,7 +125,8 @@ Phases, each printed on its own lines; every check raises on failure:
 14. the 1M cell with ``--n-shards 4`` (``ShardedSortedStore``, its reach
     closure owner-routed);
 15. the 1M cell with ``--n-shards 4 --backend hash`` (``ShardedKmerTable``),
-    on the host mirror and with ``--mirror device`` (routed lookups);
+    on the host mirror and with ``--mirror device`` (routed lookups; its
+    table's waves timed as in phase 10);
 16. ``--load-table`` of phase 9's checkpoint with ``--n-shards 4``: into a
     ``ShardedKmerTable``, as in the JAX package;
 17. the chunked spectra: ``--chunks 10`` on the first 250k reads, sorted
@@ -125,17 +140,20 @@ Phases, each printed on its own lines; every check raises on failure:
     the one card, the code path of four cards (``groups_phase``): phase
     8's batch as four windowed ``hash_insert`` launches, exact against
     the windowed plain version and the one-launch table, each timed; the
-    pointer-table ``hash_lookup`` (a 4096-query wave and 2^20 queries);
+    pointer-table ``hash_lookup`` (a 4096-query wave and 2^20 queries),
+    and the wave path through it (phase 8's wave checks);
     phase 13's closures over shards placed on the list (on several
     cards, the peer shards' LUTs copied to the launching card and held
     equal to their own); then the 1M cell
     with ``--n-shards 4`` on the sorted backend, on the hash backend with
-    ``--mirror device``, and ``--load-table`` of phase 9's checkpoint.
+    ``--mirror device`` (its table's waves timed as in phase 10), and
+    ``--load-table`` of phase 9's checkpoint.
     Where two or more cards are visible, the same again on distinct
     cards (``cuda:0,cuda:1,...``), after the dependent-load latency into
     a peer's DRAM, with a check of the cross-card stream ordering: the
     peer cards' shards cleared, then written back behind a
     ``torch.cuda._sleep`` on their own streams, while ``hash_lookup``
+    (the tensor wrapper, and a wave of a table made on the late slots)
     and ``reach_closure`` launch on the first card, which must stay
     exact against their plain versions; otherwise one line says that
     part did not run;
@@ -182,7 +200,8 @@ Phases, each printed on its own lines; every check raises on failure:
 23. k=31, past the packed count field (the key/count compaction, no
     drain v2): ``reach_closure`` (narrow and wide roots, each also warm
     started), ``probe_rows``, ``hash_insert`` and the directional
-    ``hash_lookup`` against their plain versions on k=31 data; then
+    ``hash_lookup`` against their plain versions on k=31 data (the
+    lookup also through the wave path, as in phase 8); then
     ``-k 31 --chunks 10`` on the first 250k reads, sorted and hash,
     byte-identical to the JAX package's k=31 oracle in ``oracles/``;
     then at 8M reads sorted and hash ``--chunks 1``, and sorted and
@@ -325,6 +344,14 @@ MERGE_SHAPE = (1 << 26, 37_939_713, 1 << 28, 91_359_173, 20_669_603)
 LOOKUP_WAVE = 4096
 SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep: ~50 ms at the H100's clock
 LOOKUP_MANY = 1 << 20
+# the lookup waves (kernels.hash.LookupWaves, numpy to numpy): the sizes
+# held to lookup_plain (both sentinels in each of 2 queries or more), the
+# gene threads that issue waves at once (-t 8), and the waves each thread
+# replays
+WAVE_SIZES = (0, 1, 5, 64, 4097, LOOKUP_WAVE, LOOKUP_MANY)
+WAVE_THREADS = 7
+THREAD_WAVES = 64
+KMER_SENTINEL = (1 << 64) - 1
 CHECKPOINT = os.path.join(OUT_DIR, "hash_1M.npz")
 N_SHARDS = "4"  # --n-shards of phases 14-18
 DEVICES_ENV = "SHARKMER_TORCH_DEVICES"
@@ -459,11 +486,12 @@ def median_ms(torch, fn, reps: int, reset=None) -> float:
 
 
 def compare(torch, name: str, kernel, plain, reps: int, card: str,
-            what: str, library=None) -> dict:
+            what: str, library=None, plain_reps: int | None = None) -> dict:
     """Exact equality of kernel() with plain() and, where given, with
     library() (one PyTorch call that computes the same function), then
     median times in turns: plain, library, kernel, kernel, library,
-    plain."""
+    plain, each of ``reps`` calls (the plain ones of ``plain_reps``
+    where given)."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     require(got.dtype == want.dtype and got.shape == want.shape,
@@ -478,12 +506,13 @@ def compare(torch, name: str, kernel, plain, reps: int, card: str,
         require(torch.equal(got, library()),
                 f"{name}: kernel differs from the library call on {what}")
     del got, want
-    plain_ms = median_ms(torch, plain, reps)
+    plain_reps = reps if plain_reps is None else plain_reps
+    plain_ms = median_ms(torch, plain, plain_reps)
     library_ms = None if library is None else median_ms(torch, library, reps)
     ms = (median_ms(torch, kernel, reps) + median_ms(torch, kernel, reps)) / 2
     if library is not None:
         library_ms = (library_ms + median_ms(torch, library, reps)) / 2
-    plain_ms = (plain_ms + median_ms(torch, plain, reps)) / 2
+    plain_ms = (plain_ms + median_ms(torch, plain, plain_reps)) / 2
     lib_text = "" if library is None else f", {library_ms:.4f} ms library"
     print(f"{name}: exact on {what}; median {ms:.4f} ms kernel vs "
           f"{plain_ms:.4f} ms plain{lib_text} on {card}", flush=True)
@@ -1215,7 +1244,7 @@ def instrument(torch, kernels):
         torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
         plain_closures=[], hash_exports=[], shard_exports=[],
         hash_grows=[], lookup_waves=[], table_calls=[], panel_scans=[],
-        merges=[])
+        merges=[], lookup_table=None)
 
     def counted(cls, name, event):
         """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -1263,10 +1292,14 @@ def instrument(torch, kernels):
         return self
 
     KmerTable.merge_from = merge_shapes
-    counted(KmerTable, "lookup_directional",
-            lambda a: ctx.lookup_waves.append(len(a[1])))
-    counted(ShardedKmerTable, "lookup_directional",
-            lambda a: ctx.lookup_waves.append(len(a[1])))
+
+    def wave(args):
+        """A lookup wave's size; its table kept for ``cli_wave_times``."""
+        ctx.lookup_waves.append(len(args[1]))
+        ctx.lookup_table = args[0]
+
+    counted(KmerTable, "lookup_directional", wave)
+    counted(ShardedKmerTable, "lookup_directional", wave)
     # on the card the closure must never fall back to its torch loop
     counted(closure, "closure_plain",
             lambda a: ctx.plain_closures.append(1))
@@ -1361,6 +1394,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     argv = ["-s", sample, "-k", str(k), "-t", "8", "-o", out, *by, *extra]
     if fastq:
         argv += ["-m", str(n_reads), FASTQS[panel]]
+    ctx.lookup_table = None  # the last run's, if cli_wave_times kept it
     for index in range(torch.cuda.device_count()):  # each card's own peak
         torch.cuda.reset_peak_memory_stats(index)
     n_lines = len(run_log.lines)
@@ -1755,6 +1789,11 @@ def long_k_kernels(torch, np, card: str) -> dict:
     print(f"hash_lookup at k={k}: exact on {queries.numel()} directional "
           f"queries; {ms:.4f} ms vs {plain_ms:.4f} ms plain on {card}",
           flush=True)
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    wave_checks(torch, np, KmerTable(k, *kern, kern[0].device),
+                f"the k={k} table", gen)
     del kern, plain
     torch.cuda.empty_cache()
     return record
@@ -2167,7 +2206,8 @@ def run_scan_phase(torch, np, card: str, kernels) -> dict:
     all-equal keys, at 2^24 (the 2^24 cell's drain width), and at ragged
     lengths around the kernels' tile, once at a key pointer offset by one
     element. A ragged input is a slice across the start of the 2^24
-    keys' sentinel tail."""
+    keys' sentinel tail. The plain versions at 2^27 and 2^24 (0.36 and
+    0.045 s a call, host-bound and steady) are timed one call a turn."""
     from sharkmer_tpu_torch.kernels import run_scan
 
     library = {
@@ -2178,25 +2218,25 @@ def run_scan_phase(torch, np, card: str, kernels) -> dict:
     }
     inputs = {name: {} for name in library}
 
-    def check(what, keys, reps):
+    def check(what, keys, reps, plain_reps=None):
         for name, lib_call in library.items():
             kernel, plain = kernels[name], getattr(run_scan, f"{name}_plain")
             result = compare(torch, name, lambda: kernel(keys),
                              lambda: plain(keys), reps, card, what,
-                             lambda: lib_call(keys))
+                             lambda: lib_call(keys), plain_reps)
             # read each 8 B key, write each 4 B position
             inputs[name][what] = {**result, **byte_bound(12 * keys.numel())}
 
     main_what = f"{KERNEL_N} sorted keys"
     keys = torch.from_numpy(sorted_test_keys(np, KERNEL_N)).cuda()
-    check(main_what, keys, 5)
+    check(main_what, keys, 5, 1)
     keys.zero_()
-    check(f"{KERNEL_N} equal keys", keys, 5)
+    check(f"{KERNEL_N} equal keys", keys, 5, 1)
     del keys
     torch.cuda.empty_cache()
     n = 1 << 24
     keys = torch.from_numpy(sorted_test_keys(np, n)).cuda()
-    check(f"{n} sorted keys", keys, 10)
+    check(f"{n} sorted keys", keys, 10, 1)
     tile = run_scan.tile()
     tail = n - n // 7
     for length in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
@@ -2318,6 +2358,271 @@ def graph_ms(torch, launch, reps: int = 200) -> float:
     times = [median_ms(torch, graph.replay, 1) / reps for _ in range(5)]
     del graph
     return statistics.median(times)
+
+
+def wave_pool(torch, table, gen):
+    """LOOKUP_MANY keys of ``table`` (a ``KmerTable`` or
+    ``ShardedKmerTable``) drawn at random, on its launching device."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    groups = getattr(table, "group_slots", None) or [table.slots]
+    keys = torch.cat([hk.slot_keys(g).reshape(-1).to(table.device)
+                      for g in groups])
+    keys = keys[keys != INT64_MAX]
+    pick = torch.randint(0, keys.numel(), (LOOKUP_MANY,), device=keys.device,
+                         generator=gen)
+    return keys[pick]
+
+
+def wave_queries(torch, np, pool, k: int, n: int, gen):
+    """A wave of ``n`` directional queries as the graph extension hands
+    them over (numpy uint64): half keys of the table from ``pool``,
+    every other one as its reverse complement, half random keys; with 2
+    queries or more, one KMER_SENTINEL and one INT64_MAX among them."""
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+
+    half = n // 2
+    pick = pool[torch.randint(0, pool.numel(), (half,), device=pool.device,
+                              generator=gen)]
+    pick[::2] = revcomp(pick[::2], k)
+    absent = torch.randint(0, 1 << (2 * k), (n - half,), device=pool.device,
+                           generator=gen)
+    q = torch.cat([pick, absent]).cpu().numpy().view(np.uint64).copy()
+    if n >= 2:
+        q[0], q[-1] = KMER_SENTINEL, INT64_MAX
+    return q
+
+
+def wave_plain(torch, np, table, q):
+    """``lookup_plain``'s counts (numpy uint32) of the wave ``q`` on
+    ``table``'s slots, on the card, the queries through the key codec."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+    from sharkmer_tpu_torch.ops.keys import keys_to_device
+
+    groups = getattr(table, "group_slots", None)
+    slots = (table.slots if groups is None else
+             groups[0] if len(groups) == 1 else groups)
+    out = hk.lookup_plain(slots, keys_to_device(q, table.device), table.k)
+    return out.cpu().numpy().view(np.uint32)
+
+
+def thread_waves(table, waves, want=None) -> tuple[float, list]:
+    """WAVE_THREADS threads, started together after one untimed wave
+    each, each issuing every wave of ``waves`` through
+    ``table.lookup_directional`` (thread t from wave t on): waves a
+    second in all, and the (thread, wave) pairs whose answer differs
+    from ``want``'s, where given."""
+    import threading
+
+    barrier = threading.Barrier(WAVE_THREADS + 1)
+    bad = []
+
+    def issue(t: int) -> None:
+        # the thread's first wave makes its stream and buffers: untimed
+        table.lookup_directional(waves[t % len(waves)])
+        barrier.wait()
+        for i in range(len(waves)):
+            j = (i + t) % len(waves)
+            got = table.lookup_directional(waves[j])
+            if want is not None and not (got == want[j]).all():
+                bad.append((t, j))
+
+    threads = [threading.Thread(target=issue, args=(t,))
+               for t in range(WAVE_THREADS)]
+    for thread in threads:
+        thread.start()
+    barrier.wait()
+    start = time.perf_counter()
+    for thread in threads:
+        thread.join()
+    return WAVE_THREADS * len(waves) / (time.perf_counter() - start), bad
+
+
+def wave_checks(torch, np, table, label: str, gen) -> None:
+    """The wave path (``lookup_directional``: numpy in, numpy out, one
+    ``shk_hash_lookup_wave`` call) against ``lookup_plain`` on the card
+    at WAVE_SIZES, each non-empty wave one ``hash_lookup`` launch; then
+    WAVE_THREADS threads issuing THREAD_WAVES waves each at once, every
+    answer exact."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    pool = wave_pool(torch, table, gen)
+    for n in WAVE_SIZES:
+        q = wave_queries(torch, np, pool, table.k, n, gen)
+        want = wave_plain(torch, np, table, q)
+        before = hk.hash_lookup.launches
+        got = table.lookup_directional(q)
+        require(got.dtype == np.uint32 and got.shape == (n,)
+                and (got == want).all(),
+                f"hash_lookup: a {n}-query wave ({label}) differs from "
+                f"lookup_plain")
+        require(hk.hash_lookup.launches - before == int(n > 0),
+                f"hash_lookup: a {n}-query wave launched "
+                f"{hk.hash_lookup.launches - before} times")
+        found = int((want != 0).sum())
+        # the table's keys but the one the first sentinel replaced
+        require(found >= n // 2 - 1, f"hash_lookup: {found} of {n} found")
+    sizes = np.random.default_rng(7).integers(1, 2 * LOOKUP_WAVE,
+                                              THREAD_WAVES)
+    waves = [wave_queries(torch, np, pool, table.k, int(n), gen)
+             for n in sizes]
+    want = [wave_plain(torch, np, table, q) for q in waves]
+    rate, bad = thread_waves(table, waves, want)
+    require(not bad, f"hash_lookup: {len(bad)} waves of {WAVE_THREADS} "
+            f"threads differ from lookup_plain ({label})")
+    print(f"hash_lookup wave path: exact against lookup_plain on {label}, "
+          f"k={table.k}: waves of {', '.join(map(str, WAVE_SIZES))} "
+          f"queries (both sentinels in each of 2 or more), one launch "
+          f"each; {WAVE_THREADS} threads x {THREAD_WAVES} waves at once "
+          f"exact ({rate:.0f} waves/s)", flush=True)
+
+
+def late_wave(torch, np, table, gen) -> None:
+    """The wave stream's ordering: ``table``'s slots copied into a
+    cleared table behind ``torch.cuda._sleep`` (SLEEP_CYCLES) on the
+    current stream, the new ``KmerTable`` on them looked up at once
+    through the wave path (its own stream; the table's ``WriteFence``
+    orders it after the copy), at LOOKUP_WAVE and LOOKUP_MANY queries:
+    exact against the wave on the source table. A wave that did not wait
+    would read empty slots."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+
+    pool = wave_pool(torch, table, gen)
+    for n in (LOOKUP_WAVE, LOOKUP_MANY):
+        q = wave_queries(torch, np, pool, table.k, n, gen)
+        want = table.lookup_directional(q)
+        slots = hk.new_slots(table.slots.shape[:-1], table.device)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        slots.copy_(table.slots)
+        late = KmerTable(table.k, slots, table.claims.clone(), table.device)
+        start = time.perf_counter()
+        got = late.lookup_directional(q)
+        wall = (time.perf_counter() - start) * 1e3
+        require((got == want).all() and (want != 0).sum() >= n // 2 - 1,
+                f"hash_lookup: a {n}-query wave read a table written late "
+                f"on the current stream")
+        print(f"hash_lookup wave path: exact on a {n}-query wave of a table "
+              f"written behind torch.cuda._sleep({SLEEP_CYCLES}) on the "
+              f"current stream (the wave took {wall:.1f} ms: it waited)",
+              flush=True)
+        del late, slots
+    torch.cuda.empty_cache()
+
+
+def wave_times(torch, np, card: str, table, sizes, label: str, gen) -> dict:
+    """Host-clock ms (the median of 200 calls, 20 past LOOKUP_WAVE
+    queries, after a warm one) at each of ``sizes``: one wave numpy to
+    numpy (``lookup_directional``); its foreign call alone
+    (``shk_hash_lookup_wave`` on the staged wave: the launch and the
+    synchronisation), and that call with no query (ctypes and the
+    call's own checks); then waves of ``sizes[0]`` queries a second,
+    THREAD_WAVES from one thread and from WAVE_THREADS threads at
+    once."""
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    def median_wall(fn, reps: int) -> float:
+        walls = []
+        for _ in range(reps):
+            start = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(walls)
+
+    pool = wave_pool(torch, table, gen)
+    rec = {}
+    for n in sizes:
+        q = wave_queries(torch, np, pool, table.k, n, gen)
+        reps = 200 if n <= LOOKUP_WAVE else 20
+        table.lookup_directional(q)
+        times = {"wave": median_wall(lambda: table.lookup_directional(q),
+                                     reps)}
+        # the foreign call alone on the wave as staged, and with no query
+        waves = table._waves
+        lib, index = waves.lib, waves.device.index
+        state = hk._wave_stream(lib, waves.device)
+        state.stage(lib, n)
+        state.q[:n] = q
+        for name, size in (("call", n), ("empty call", 0)):
+            times[name] = median_wall(
+                lambda size=size: require(lib.shk_hash_lookup_wave(
+                    index, *waves.table, table.k, size, *state.mapped,
+                    state.stream) == 0, "hash_lookup: the wave failed"),
+                reps)
+        print(f"hash_lookup wave, {label}: {n} queries numpy to numpy "
+              f"{times['wave']:.4f} ms (its foreign call alone "
+              f"{times['call']:.4f} ms, with no query "
+              f"{times['empty call']:.4f} ms) on {card}", flush=True)
+        rec[str(n)] = times
+    waves = [wave_queries(torch, np, pool, table.k, sizes[0], gen)
+             for _ in range(THREAD_WAVES)]
+    start = time.perf_counter()
+    for q in waves:
+        table.lookup_directional(q)
+    one = len(waves) / (time.perf_counter() - start)
+    rate, _ = thread_waves(table, waves)
+    print(f"hash_lookup wave, {label}: {sizes[0]}-query waves a second: "
+          f"{one:.0f} from one thread, {rate:.0f} from {WAVE_THREADS} "
+          f"threads at once on {card}", flush=True)
+    rec["waves_per_s"] = {"one thread": one, f"{WAVE_THREADS} threads": rate}
+    return rec
+
+
+def cli_wave_times(ctx, card: str, label: str) -> dict:
+    """``wave_times`` on the table of the run just driven (``label``),
+    at its median and largest wave, LOOKUP_WAVE and LOOKUP_MANY queries;
+    the table is then let go."""
+    torch = ctx.torch
+    import numpy as np
+
+    waves = sorted(n for n in ctx.lookup_waves if n)
+    require(waves and ctx.lookup_table is not None,
+            f"{label}: no lookup wave to time")
+    sizes = [waves[len(waves) // 2], waves[-1], LOOKUP_WAVE, LOOKUP_MANY]
+    gen = torch.Generator(device=ctx.lookup_table.device).manual_seed(9)
+    try:
+        return wave_times(torch, np, card, ctx.lookup_table, sizes,
+                          f"{label}'s table", gen)
+    finally:
+        ctx.lookup_table = None
+        torch.cuda.empty_cache()
+
+
+def waves_alone(torch, np, card: str) -> None:
+    """``--waves``: the wave path on tables of 2^25 random canonical keys
+    in HASH_CAP slots: ``wave_checks`` on one table, HASH_SHARDS shards
+    and HASH_SHARDS groups on the card (the pointer table) at k = K and
+    on one table at LONG_K, ``late_wave``, and ``wave_times`` at 4^0 to
+    4^10 queries on the one table at K."""
+    from sharkmer_tpu_torch.device import device_list
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+    from sharkmer_tpu_torch.ops.histogram import revcomp
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for k in (K, LONG_K):
+        keys = torch.randint(0, 1 << (2 * k), (1 << 25,), device="cuda",
+                             generator=gen)
+        keys = torch.minimum(keys, revcomp(keys, k))
+        what = f"{keys.numel()} random keys"
+        one = KmerTable.create(k, HASH_CAP, "cuda").insert_kmers(keys)
+        wave_checks(torch, np, one, f"one table of {what}", gen)
+        if k == LONG_K:
+            break
+        late_wave(torch, np, one, gen)
+        wave_times(torch, np, card, one, [4 ** i for i in range(11)],
+                   f"one table of {what}", gen)
+        del one
+        for devices in (["cuda"], ["cuda:0"] * HASH_SHARDS):
+            table = ShardedKmerTable.create(k, HASH_SHARDS,
+                                            HASH_CAP // HASH_SHARDS,
+                                            device_list(devices))
+            wave_checks(torch, np, table.insert_kmers(keys),
+                        f"{HASH_SHARDS} shards in {len(devices)} group(s) "
+                        f"of {what}", gen)
+            del table
+        torch.cuda.empty_cache()
 
 
 def hash_phase(torch, np, card: str, latency: dict) -> dict:
@@ -2527,7 +2832,18 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
                                               + 2 * latency["dram_ns"]) / 1e6)
     lookup["max_abs_err"] = max(v for key, v in lookup.items()
                                 if key.endswith("max_abs_err"))
-    del tables, kmers, valid
+    # the wave path on the same tables, as their lookups issue it
+    from sharkmer_tpu_torch.ops.hashtable import KmerTable
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    one_table = KmerTable(K, *tables["1 table"], cuda)
+    wave_checks(torch, np, one_table, "1 table", gen)
+    late_wave(torch, np, one_table, gen)
+    slots, claims = tables[f"{HASH_SHARDS} shards"]
+    wave_checks(torch, np, ShardedKmerTable(K, [cuda], [slots], [claims]),
+                f"{HASH_SHARDS} shards", gen)
+    del tables, kmers, valid, one_table, slots, claims
     torch.cuda.empty_cache()
     return {"hash_insert": insert, "hash_lookup": lookup}
 
@@ -2880,7 +3196,30 @@ def groups_phase(torch, np, card: str, latency: dict, devices,
                   f"streams", flush=True)
     lookup_rec["max_abs_err"] = max(lookup_rec["max_abs_err"],
                                     lookup_rec["many_max_abs_err"])
-    del kern, one, batches, kmers, valid, pointers
+    # the wave path through the groups' pointer table
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+
+    table = ShardedKmerTable(K, list(devices), kern[0], kern[1])
+    where = (f"the pointer table of {S} shards on "
+             f"{','.join(map(str, devices))}")
+    wave_checks(torch, np, table, where, gen)
+    if not one_card:
+        # the peer groups' slots written late on their cards' streams;
+        # the table made on them records an event on each card
+        pool = wave_pool(torch, table, gen)
+        q = wave_queries(torch, np, pool, K, LOOKUP_WAVE, gen)
+        want = table.lookup_directional(q)
+        held = late_writes(torch, launch, kern[0], lambda slots: (
+            slots[..., 0].fill_(INT64_MAX), slots[..., 1].zero_()))
+        late = ShardedKmerTable(K, list(devices), kern[0], kern[1])
+        require((late.lookup_directional(q) == want).all(),
+                "hash_lookup: a wave differs when peer cards write their "
+                "shards late")
+        print(f"hash_lookup wave path: exact on {where} while {held} peer "
+              f"groups' slots were written late on their cards' streams",
+              flush=True)
+        del late, pool
+    del table, kern, one, batches, kmers, valid, pointers
     torch.cuda.empty_cache()
 
     closures = closure_phase(torch, np, card, latency, {
@@ -3047,14 +3386,15 @@ def peer_latencies(torch, cards, card: str, latency: dict) -> dict:
 
 
 def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
-                    record: dict, runs: dict, load: bool = True,
-                    reuse: dict | None = None) -> str:
+                    record: dict, runs: dict, waves: dict,
+                    load: bool = True, reuse: dict | None = None) -> str:
     """Phase 18 on one placement, ``devices`` (names, one a shard group):
     ``groups_phase``, then the 1M cell with ``--n-shards`` N_SHARDS under
-    ``SHARKMER_TORCH_DEVICES``: sorted, hash ``--mirror device`` and,
-    with ``load``, ``--load-table`` of phase 9's checkpoint (runs
-    ``<tag>_sorted``, ``<tag>_hash_device``, ``<tag>_load``). Returns the
-    records' label."""
+    ``SHARKMER_TORCH_DEVICES``: sorted, hash ``--mirror device`` (its
+    table's waves timed into ``waves``) and, with ``load``,
+    ``--load-table`` of phase 9's checkpoint (runs ``<tag>_sorted``,
+    ``<tag>_hash_device``, ``<tag>_load``). Returns the records'
+    label."""
     torch = ctx.torch
     label = f"{len(devices)} groups on {len(set(devices))} card(s)"
     record.update(groups_phase(torch, np, card, latency,
@@ -3068,6 +3408,8 @@ def placement_phase(ctx, np, card: str, latency: dict, tag: str, devices,
             ctx, f"{tag}_hash_device", 1_000_000,
             ("--n-shards", N_SHARDS, "--backend", "hash", "--mirror",
              "device"))
+        waves[f"{tag}_hash_device"] = cli_wave_times(ctx, card,
+                                                     f"{tag}_hash_device")
         if load:
             runs[f"{tag}_load"] = drive_main_path(
                 ctx, f"{tag}_load", 1_000_000,
@@ -3250,9 +3592,9 @@ def main() -> int:
     args = sys.argv[1:]
     require(args in ([], ["--closure-times"], ["--chunked"],
                      ["--chunked-cards"], ["--long-k"], ["--entries"],
-                     ["--panels"]),
+                     ["--panels"], ["--waves"]),
             f"unknown arguments {args}: none, --closure-times, --chunked, "
-            f"--chunked-cards, --long-k, --entries or --panels")
+            f"--chunked-cards, --long-k, --entries, --panels or --waves")
     # the options that run one phase after phases 1 and 2 (and, for
     # --entries, phase 4's run, its ingest wall the one to compare with)
     chunked_only = args in (["--chunked"], ["--chunked-cards"])
@@ -3262,7 +3604,7 @@ def main() -> int:
     # script's grid panels (phase 25's start after phase 3, so that
     # phases 2 and 3, the builds, the timed kernels and their profiler
     # sessions, run beside the grid's three children only)
-    needed = (set() if args == ["--closure-times"] else
+    needed = (set() if args in (["--closure-times"], ["--waves"]) else
               set(BUILTIN_SEEDS) if args == ["--panels"] else
               {"cnidaria"} if alone else set(GRID_SEEDS))
     sys.path.insert(0, HERE)
@@ -3325,6 +3667,13 @@ def main() -> int:
                    "reach_closure": closure.reach_closure,
                    "hash_insert": hash_kernels.hash_insert,
                    "hash_lookup": hash_kernels.hash_lookup}
+        if args == ["--waves"]:
+            phase("8b. the lookup wave path on synthetic tables (alone: "
+                  "--waves)")
+            waves_alone(torch, np, card)
+            print(f"chip_smoke --waves wall: "
+                  f"{time.monotonic() - T_START:.1f} s; passed")
+            return 0
         if chunked_only:
             wait_fastq("cnidaria")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -3386,6 +3735,7 @@ def main() -> int:
         runs = {"default": drive_main_path(ctx, "default", 1_000_000,
                                            ("-vv",))}
         group_labels = {}  # phase 18's placements: tag -> record label
+        waves = {}  # the --mirror device runs' tables: their waves timed
 
         phase("5. main path again with SHARKMER_MAX_AGG=2^24")
         os.environ["SHARKMER_MAX_AGG"] = str(1 << 24)
@@ -3428,6 +3778,7 @@ def main() -> int:
         runs["hash_device"] = drive_main_path(
             ctx, "hash_device", 1_000_000,
             ("--backend", "hash", "--mirror", "device"))
+        waves["hash_device"] = cli_wave_times(ctx, card, "hash_device")
 
         phase("11. --load-table of phase 9's checkpoint, no FASTQ: "
               "sorted backend (reach), then hash backend")
@@ -3467,6 +3818,8 @@ def main() -> int:
             ctx, "shards_hash_device", 1_000_000,
             ("--n-shards", N_SHARDS, "--backend", "hash", "--mirror",
              "device"))
+        waves["shards_hash_device"] = cli_wave_times(ctx, card,
+                                                     "shards_hash_device")
 
         phase(f"16. --load-table of phase 9's checkpoint with --n-shards "
               f"{N_SHARDS} (a ShardedKmerTable)")
@@ -3498,7 +3851,7 @@ def main() -> int:
                 record["peer_dram_ns"] = peer_latencies(torch, cards, card,
                                                         latency)
             group_labels[tag] = (placement_phase(ctx, np, card, latency, tag,
-                                                 devices, record, runs,
+                                                 devices, record, runs, waves,
                                                  reuse=reuse),
                                  len(devices))
         if "cards" not in placements:
@@ -3666,6 +4019,9 @@ def main() -> int:
                                            "wide bucket"))
         else:
             rec = record[name]
+        if name == "hash_lookup":
+            # numpy to numpy on each --mirror device run's table
+            rec["waves"] = waves
         # phase 23: the kernel at k=31 (k31_[call_]<field>)
         for key, value in record["k31"].items():
             if key.split()[0] == name:

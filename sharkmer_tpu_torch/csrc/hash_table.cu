@@ -76,18 +76,41 @@
 // insert, was built and timed against this kernel and lost at every shape
 // but an all-hits batch (PERF.md).
 //
-// hash_lookup, per query: canonicalize when k > 0 (min of the key and its
-// reverse complement), route, then probe with one 16 B load a step until the
-// key (its count is in the same load) or an empty slot. A wave of a few
-// thousand queries is one dependent chain: the query, then its slot sector
-// from DRAM.
+// hash_lookup, per query: answer 0 to either sentinel (the port's SENTINEL,
+// and KMER_SENTINEL, all ones, the JAX package's pad: no key is >= 4^31, so
+// neither is a key, and the host needs no translation), canonicalize when
+// k > 0 (min of the key and its reverse complement), route, then probe with
+// one 16 B load a step until the key (its count is in the same load) or an
+// empty slot. On the card, a wave of a few hundred to a few thousand queries
+// is one dependent chain of ~2.5 us: the query, then its slot sector from
+// DRAM.
+//
+// A wave of the sPCR graph extension starts and ends on the host, as numpy,
+// so what bounds it is the host around that chain: the launch, the link's
+// latency, the synchronisation, and whatever the host does between them (a
+// dozen torch calls, a pageable copy each way and, on a stream shared by
+// the gene threads, a wait on every other thread's work: ~0.1 ms a wave
+// through the tensor wrapper, PERF.md). The wave path does the least the
+// card needs: a numpy copy into the calling thread's pinned staging buffer,
+// one foreign call (shk_hash_lookup_wave, which ctypes makes without the
+// GIL) that launches on the thread's own stream and waits for that stream
+// alone, and a numpy copy of the counts out. The wave is zero copy: the
+// kernel loads its queries from the pinned buffer across the host link and
+// stores its counts there (mapped memory under unified addressing), one
+// link round trip in place of two copies. Copying a wave in and out of
+// device buffers lost at every size timed, up to 2^20 queries, where the
+// host's copies into and out of the staging buffers outweigh either. What
+// is left is the launch and the synchronisation, ~13-15 us of a ~20 us
+// wave (PERF.md).
 //
 // Neither kernel multiplies matrices, and a TMA tile does not help single
 // scattered sectors: no wgmma, no TMA here.
 //
-// Plain C interface, bound with ctypes: each entry point launches on the
-// given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after its launch (0 = success).
+// Plain C interface, bound with ctypes: shk_hash_insert and shk_hash_lookup
+// launch on the given stream, do not synchronise, allocate nothing, and
+// return cudaGetLastError() after their launch (0 = success).
+// shk_hash_lookup_wave also synchronises its stream before it returns; the
+// caller allocates its buffers and streams (kernels/hash.py).
 
 #include <cstdint>
 
@@ -101,6 +124,7 @@ using u64 = unsigned long long;
 using shk::mix64;
 
 constexpr u64 kEmpty = 0x7FFFFFFFFFFFFFFFull;  // ops/keys.py SENTINEL
+constexpr u64 kAllOnes = ~0ull;                 // KMER_SENTINEL
 constexpr unsigned int kSat = 0xE0000000u;      // SAT_THRESHOLD
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
@@ -265,7 +289,7 @@ hash_lookup_kernel(const u64* __restrict__ slots,
        i < n; i += stride) {
     u64 key = queries[i];
     unsigned int result = 0;
-    if (key != kEmpty) {
+    if (key != kEmpty && key != kAllOnes) {
       if (k > 0) {
         const u64 rc = revcomp(key, k);
         key = rc < key ? rc : key;
@@ -326,12 +350,12 @@ int shk_hash_insert(int64_t* slots, int64_t cap, int n_local, int shard_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// queries [n] int64 (SENTINEL answers 0), each answered by its owner shard
-// of n_shards; k > 0 canonicalizes each query first (directional lookup);
-// out [n] uint32 counts, 0 when absent. The shards are either one
-// [n_shards, cap, 2] allocation at `slots` (shard_slots NULL), or anywhere
-// this card can read: shard_slots [n_shards] int64 on this card holds the
-// address of each shard's slot 0 (slots unused).
+// queries [n] int64 (SENTINEL and all ones answer 0), each answered by its
+// owner shard of n_shards; k > 0 canonicalizes each query first
+// (directional lookup); out [n] uint32 counts, 0 when absent. The shards
+// are either one [n_shards, cap, 2] allocation at `slots` (shard_slots
+// NULL), or anywhere this card can read: shard_slots [n_shards] int64 on
+// this card holds the address of each shard's slot 0 (slots unused).
 int shk_hash_lookup(const int64_t* slots, const int64_t* shard_slots,
                     int64_t cap, int n_shards, const int64_t* queries,
                     int64_t n, int k, int* out, cudaStream_t stream) {
@@ -341,6 +365,78 @@ int shk_hash_lookup(const int64_t* slots, const int64_t* shard_slots,
       reinterpret_cast<const u64*>(queries), n, k,
       reinterpret_cast<unsigned int*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// One lookup wave on `stream` of card `device` (made current for the call,
+// and the caller's card restored): the kernel reads the wave's n int64
+// queries at `q` and writes their uint32 counts at `out`, the device
+// addresses of the caller's pinned staging buffers (zero copy: it loads and
+// stores across the host link). SENTINEL and all ones answer 0. The table
+// arguments are shk_hash_lookup's. Returns after the stream has ended its
+// work (the buffers free again, the counts in place), 0 on success, else the
+// first cudaError.
+int shk_hash_lookup_wave(int device, const int64_t* slots,
+                         const int64_t* shard_slots, int64_t cap,
+                         int n_shards, int k, int64_t n, const int64_t* q,
+                         int* out, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  int caller = device;
+  cudaError_t rc = cudaGetDevice(&caller);
+  if (rc == cudaSuccess && caller != device) rc = cudaSetDevice(device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  hash_lookup_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+      reinterpret_cast<const u64*>(slots), shard_slots, cap, n_shards,
+      reinterpret_cast<const u64*>(q), n, k,
+      reinterpret_cast<unsigned int*>(out));
+  rc = cudaGetLastError();
+  // wait even after a failure: nothing may still use the buffers
+  const cudaError_t done = cudaStreamSynchronize(stream);
+  if (rc == cudaSuccess) rc = done;
+  if (caller != device) cudaSetDevice(caller);
+  return static_cast<int>(rc);
+}
+
+// The device address of pinned host memory at `host` (torch's pinned
+// memory): 0 and *device set when the memory is
+// page-locked host memory mapped into the card's address space, -1 when it
+// is not, else the cudaError.
+int shk_mapped_pointer(const void* host, void** device) {
+  cudaPointerAttributes attr;
+  const cudaError_t rc = cudaPointerGetAttributes(&attr, host);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr) {
+    return -1;
+  }
+  *device = attr.devicePointer;
+  return 0;
+}
+
+// A stream of its own on card `device` for one thread's waves: it does not
+// wait on the legacy default stream, on which torch queues the table's
+// writes, so shk_stream_wait_event orders a wave after them.
+int shk_stream_create(int device, cudaStream_t* stream) {
+  int caller = device;
+  cudaError_t rc = cudaGetDevice(&caller);
+  if (rc == cudaSuccess) rc = cudaSetDevice(device);
+  if (rc == cudaSuccess) {
+    rc = cudaStreamCreateWithFlags(stream, cudaStreamNonBlocking);
+    cudaSetDevice(caller);
+  }
+  return static_cast<int>(rc);
+}
+
+int shk_stream_destroy(cudaStream_t stream) {
+  return static_cast<int>(cudaStreamDestroy(stream));
+}
+
+// Make `stream` (on card `device`) wait for `event`, recorded on any card.
+int shk_stream_wait_event(int device, cudaStream_t stream, cudaEvent_t event) {
+  int caller = device;
+  cudaError_t rc = cudaGetDevice(&caller);
+  if (rc == cudaSuccess && caller != device) rc = cudaSetDevice(device);
+  if (rc == cudaSuccess) rc = cudaStreamWaitEvent(stream, event, 0);
+  if (caller != device) cudaSetDevice(caller);
+  return static_cast<int>(rc);
 }
 
 }  // extern "C"

@@ -40,16 +40,38 @@ compare-and-swap that writes the key and its count together.
 kernel's claims race, so its slot layout may differ from the plain
 version's; the table's contents (each key and its count) and
 its claim counts do not.
+
+``LookupWaves`` is the lookup as the sPCR graph extension issues it, a
+wave at a time from several gene threads: numpy uint64 queries in,
+numpy uint32 counts out. The queries are copied into the calling
+thread's pinned staging buffer, one foreign call
+(``shk_hash_lookup_wave``, without the GIL) launches ``hash_lookup``'s
+kernel on the thread's own stream and waits for that stream alone, and
+the counts are copied out of the staging buffer: two numpy copies of
+cached buffers, where handing the caller's arrays to ctypes would build
+an object for each address. The wave is zero copy: the kernel reads and
+writes the pinned buffers across the host link. Both sentinels
+(``SENTINEL`` and the JAX package's all-ones ``KMER_SENTINEL``) answer 0
+in the kernel, so the queries need no translation. A wave launches once
+and counts into ``hash_lookup.launches``. Its stream does
+not follow torch's: a table's ``WriteFence`` records an event after
+each write, and a thread's stream waits on it before its first wave
+after the write.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import threading
+import weakref
 
+import numpy as np
 import torch
 
+from ..device import indexed
 from ..ops.histogram import revcomp
-from ..ops.keys import SENTINEL
+from ..ops.keys import SENTINEL, keys_to_device
 from . import build, peer
 
 SAT_THRESHOLD = 0xE000_0000
@@ -280,6 +302,17 @@ def _lib() -> ctypes.CDLL:
         lib.shk_hash_insert.restype = ctypes.c_int
         lib.shk_hash_lookup.argtypes = [p, p, i64, i32, p, i64, i32, p, p]
         lib.shk_hash_lookup.restype = ctypes.c_int
+        lib.shk_hash_lookup_wave.argtypes = [i32, p, p, i64, i32, i32, i64,
+                                             p, p, p]
+        lib.shk_hash_lookup_wave.restype = ctypes.c_int
+        lib.shk_mapped_pointer.argtypes = [p, ctypes.POINTER(p)]
+        lib.shk_mapped_pointer.restype = ctypes.c_int
+        lib.shk_stream_create.argtypes = [i32, ctypes.POINTER(p)]
+        lib.shk_stream_create.restype = ctypes.c_int
+        lib.shk_stream_destroy.argtypes = [p]
+        lib.shk_stream_destroy.restype = ctypes.c_int
+        lib.shk_stream_wait_event.argtypes = [i32, p, p]
+        lib.shk_stream_wait_event.restype = ctypes.c_int
         lib._shk_bound = True
     return lib
 
@@ -435,3 +468,162 @@ def hash_lookup(slots, queries, k: int = 0, pointers=None) -> torch.Tensor:
 
 hash_insert.launches = 0
 hash_lookup.launches = 0
+
+
+# -- the wave path ------------------------------------------------------------
+
+_generations = itertools.count(1)
+_launches_lock = threading.Lock()
+_threads = threading.local()
+
+
+class WriteFence:
+    """Orders a table's lookup waves after its writes. Each wave
+    thread's stream runs beside torch's streams, on which a table's
+    writes (the slots' fill, inserts, merges, grows, the pointer table)
+    are queued: ``written`` records an event on the current stream of
+    each of the table's CUDA devices and takes a new generation, and a
+    thread waits on the events before its first wave of a generation it
+    has not seen (``LookupWaves``)."""
+
+    def __init__(self, devices):
+        self.events = ()
+        self.generation = 0
+        self.written(devices)
+
+    def written(self, devices) -> None:
+        """Mark the table on ``devices`` as written by the work queued so
+        far on their current streams."""
+        events = []
+        for device in dict.fromkeys(indexed(d) for d in devices):
+            if device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
+                events.append(event)
+        self.events = tuple(events)
+        self.generation = next(_generations)
+
+
+def _mapped(lib, t: torch.Tensor) -> int:
+    """The device address of pinned tensor ``t``; raises when the
+    memory is not mapped into the card's address space."""
+    address = ctypes.c_void_p()
+    rc = lib.shk_mapped_pointer(t.data_ptr(), ctypes.byref(address))
+    if rc != 0:
+        raise RuntimeError(f"hash_lookup: pinned memory at {t.data_ptr():#x} "
+                           f"is not mapped for the card (rc {rc})")
+    return address.value
+
+
+class _WaveStream:
+    """One thread's stream on one card and its pinned staging of
+    queries and counts (``q``, ``out``: numpy views; the kernel reads and
+    writes them through their device addresses), grown to the largest
+    wave seen."""
+
+    def __init__(self, lib, device: torch.device):
+        self.device = device
+        handle = ctypes.c_void_p()
+        rc = lib.shk_stream_create(device.index, ctypes.byref(handle))
+        if rc != 0:
+            raise RuntimeError(f"hash_lookup: no stream on {device} "
+                               f"(cudaError {rc})")
+        self.stream = handle.value
+        weakref.finalize(self, lib.shk_stream_destroy, self.stream)
+        self.generation = None
+        self.staged = 0
+
+    def follow(self, lib, fence: WriteFence) -> None:
+        """Order this stream's next waves after the fence's writes."""
+        generation = fence.generation
+        for event in fence.events:
+            rc = lib.shk_stream_wait_event(self.device.index, self.stream,
+                                           event.cuda_event)
+            if rc != 0:
+                raise RuntimeError(f"hash_lookup: waiting on a table write "
+                                   f"failed (cudaError {rc})")
+        self.generation = generation
+
+    def stage(self, lib, n: int) -> None:
+        """Grow the staging to hold a wave of ``n`` queries."""
+        if n > self.staged:
+            size = 1 << max(12, (n - 1).bit_length())
+            stage_q = torch.empty(size, dtype=torch.int64, pin_memory=True)
+            stage_out = torch.empty(size, dtype=torch.int32, pin_memory=True)
+            self.q = stage_q.numpy().view(np.uint64)
+            self.out = stage_out.numpy().view(np.uint32)
+            self.mapped = (_mapped(lib, stage_q), _mapped(lib, stage_out))
+            self.staged, self.pinned = size, (stage_q, stage_out)
+
+
+def _wave_stream(lib, device: torch.device) -> _WaveStream:
+    """The calling thread's ``_WaveStream`` on ``device``."""
+    streams = getattr(_threads, "streams", None)
+    if streams is None:
+        streams = _threads.streams = {}
+    state = streams.get(device.index)
+    if state is None:
+        state = streams[device.index] = _WaveStream(lib, device)
+    return state
+
+
+class LookupWaves:
+    """``hash_lookup`` a wave at a time, numpy in and numpy out, on one
+    table: ``slots`` as ``hash_lookup`` takes it (one tensor, or a list of
+    groups read through their pointer table), launched on ``device``,
+    ordered after the writes ``fence`` records. Made once a table (and
+    again when a grow replaces its slots); the checks run here, not a
+    wave. On the CPU each wave runs ``lookup_plain`` on the codec's keys."""
+
+    def __init__(self, slots, device, fence: WriteFence):
+        self.slots, self.fence = slots, fence
+        self.device = indexed(device)
+        groups = [slots] if isinstance(slots, torch.Tensor) else list(slots)
+        for group in groups:
+            peer.check_readable(self.device, group.device)
+        if self.device.type == "cpu":
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"hash_lookup: unsupported device {self.device}")
+        caps = {_check_slots("hash_lookup", g)[1] for g in groups}
+        if len(caps) != 1:
+            raise ValueError(f"hash_lookup: groups of capacities "
+                             f"{sorted(caps)}")
+        n_shards = sum(_geometry(g)[0] for g in groups)
+        self.lib = _lib()
+        if isinstance(slots, torch.Tensor):
+            self.pointers, table = None, (slots.data_ptr(), None)
+        else:
+            self.pointers = slot_pointers(groups, self.device)
+            table = (None, self.pointers.data_ptr())
+            # the pointer table's copy is a write the waves must follow
+            fence.written([self.device])
+        self.table = (*table, caps.pop(), n_shards)
+
+    def __call__(self, queries, k: int = 0) -> np.ndarray:
+        """Counts (uint32) of ``queries`` (numpy uint64, or int64 bit
+        patterns, a CPU tensor too; either sentinel answers 0), each
+        looked up in its canonical form when ``k > 0``."""
+        q = np.asarray(queries, dtype=np.uint64).reshape(-1)
+        if not 0 <= k <= 31:
+            raise ValueError(f"hash_lookup: k={k} out of range")
+        if self.device.type == "cpu":
+            return lookup_plain(self.slots, keys_to_device(q, "cpu"),
+                                k).numpy().view(np.uint32)
+        n = q.shape[0]
+        if not n:
+            return np.empty(0, dtype=np.uint32)
+        lib = self.lib
+        state = _wave_stream(lib, self.device)
+        if state.generation != self.fence.generation:
+            state.follow(lib, self.fence)
+        state.stage(lib, n)
+        state.q[:n] = q
+        rc = lib.shk_hash_lookup_wave(self.device.index, *self.table, k, n,
+                                      *state.mapped, state.stream)
+        if rc != 0:
+            raise RuntimeError(f"hash_lookup: the wave failed (cudaError "
+                               f"{rc})")
+        with _launches_lock:
+            hash_lookup.launches += 1
+        return state.out[:n].copy()

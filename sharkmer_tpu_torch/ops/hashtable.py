@@ -20,6 +20,10 @@ probed by the ``hash_insert`` and ``hash_lookup`` kernels
   (``kernels.hash.as_u32``).
 * ``claims``: int64 ``[1]``, the slots the inserts claimed: the
   occupancy, read by ``n_unique`` without a sweep of the table.
+* ``lookup`` and ``lookup_directional`` run a wave of numpy queries
+  through ``kernels.hash.LookupWaves`` (one foreign call, one launch on
+  the calling thread's own stream, one synchronisation); ``fence``
+  orders those streams after the table's writes.
 
 Unlike the JAX class, the table updates in place (``insert_kmers``
 returns ``self``; a grow replaces the tensors). The slot layout never
@@ -32,15 +36,16 @@ its grow-and-retry (``torch.nonzero`` has no fixed size).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..kernels.hash import (
+    LookupWaves,
+    WriteFence,
     as_u32,
     hash_insert,
-    hash_lookup,
     new_slots,
     slot_counts,
     slot_keys,
@@ -91,6 +96,13 @@ class KmerTable:
     slots: torch.Tensor  # int64 [capacity, 2]: key, u32 count + 4 B pad
     claims: torch.Tensor  # int64 [1]: occupied slots
     device: torch.device
+    fence: WriteFence = field(init=False, repr=False, compare=False)
+    _waves: LookupWaves | None = field(default=None, init=False,
+                                       repr=False, compare=False)
+
+    def __post_init__(self):
+        # the slots arrive written on the current stream (a fill, a copy)
+        self.fence = WriteFence([self.device])
 
     @staticmethod
     def create(k: int, capacity: int, device) -> "KmerTable":
@@ -125,6 +137,7 @@ class KmerTable:
                                                             self.device)
         self._maybe_grow(kmers.shape[0])
         hash_insert(self.slots, self.claims, kmers, amounts)
+        self.fence.written([self.device])
         return self
 
     def ingest_codes(self, codes) -> "KmerTable":
@@ -142,6 +155,7 @@ class KmerTable:
             raise ValueError("k mismatch in merge_from")
         self._maybe_grow(other.capacity)
         hash_insert(self.slots, self.claims, other.slots)
+        self.fence.written([self.device])
         return self
 
     def _maybe_grow(self, incoming: int) -> None:
@@ -158,20 +172,26 @@ class KmerTable:
         claims = torch.zeros_like(self.claims)
         hash_insert(slots, claims, self.slots)
         self.slots, self.claims = slots, claims
+        self.fence.written([self.device])
 
     # -- queries -------------------------------------------------------------
 
+    def _wave(self, queries, k: int) -> np.ndarray:
+        waves = self._waves
+        if waves is None or waves.slots is not self.slots:
+            waves = self._waves = LookupWaves(self.slots, self.device,
+                                              self.fence)
+        return waves(queries, k)
+
     def lookup(self, queries) -> np.ndarray:
-        """Counts (uint32) of canonical queries, 0 when absent."""
-        out = hash_lookup(self.slots, batch_keys(queries, self.device))
-        return out.cpu().numpy().view(np.uint32)
+        """Counts (uint32) of canonical queries, 0 when absent: one
+        wave."""
+        return self._wave(queries, 0)
 
     def lookup_directional(self, queries) -> np.ndarray:
         """Counts (uint32) of directional k-mers, canonicalized (min of
-        the k-mer and its revcomp) in the kernel."""
-        out = hash_lookup(self.slots, batch_keys(queries, self.device),
-                          self.k)
-        return out.cpu().numpy().view(np.uint32)
+        the k-mer and its revcomp) in the kernel: one wave."""
+        return self._wave(queries, self.k)
 
     def histogram(self, histo_max: int) -> np.ndarray:
         """uint64 vector of length histo_max+2 (Histogram::get_vector)."""

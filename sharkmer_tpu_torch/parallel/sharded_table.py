@@ -25,10 +25,12 @@ routing inside the kernels:
   would pass ``MAX_LOAD`` of all ``S * local`` slots, every shard
   doubles: one launch a group rehashes its own old slots (the owner does
   not depend on capacity, so no key changes group).
-* **queries**: a lookup is one ``hash_lookup`` launch on ``devices[0]``
-  that reads each shard through a pointer table, wherever it lives (on
-  one group, from the group's tensor, without the pointer table; JAX
-  masks by owner and sums the shards' answers); the histogram is one
+* **queries**: a lookup is one wave (``kernels.hash.LookupWaves``: one
+  ``hash_lookup`` launch on ``devices[0]``, on the calling thread's
+  stream, ordered after the groups' writes by ``fence``) that reads each
+  shard through a pointer table, wherever it lives (on one group, from
+  the group's tensor, without the pointer table; JAX masks by owner and
+  sums the shards' answers); the histogram is one
   clipped bincount a group, summed (the JAX gather of u64 histograms
   exists only because a u64 all-reduce does not lower on a TPU); primer
   scans concatenate the shards' scans in shard order.
@@ -39,20 +41,20 @@ tensor and one launch an insert.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..device import device_list, shard_groups
 from ..kernels.hash import (
+    LookupWaves,
+    WriteFence,
     as_u32,
     hash_insert,
-    hash_lookup,
     new_slots,
     slot_counts,
     slot_keys,
-    slot_pointers,
 )
 from ..ops.encoding import canonical_kmers
 from ..ops.hashtable import MAX_LOAD, KmerTable, batch_amounts, batch_keys
@@ -70,7 +72,13 @@ class ShardedKmerTable:
     devices: list  # D torch devices, group d on devices[d]
     group_slots: list  # int64 [n_d, local_capacity, 2] a group, 16 B slots
     group_claims: list  # int64 [n_d] a group: each shard's occupied slots
-    _pointers: torch.Tensor | None = None  # hash_lookup's, made on demand
+    fence: WriteFence = field(init=False, repr=False, compare=False)
+    _waves: LookupWaves | None = field(default=None, init=False,
+                                       repr=False, compare=False)
+
+    def __post_init__(self):
+        # the slots arrive written on their devices' current streams
+        self.fence = WriteFence(self.devices)
 
     @staticmethod
     def create(k: int, n_shards: int, local_capacity: int = 1 << 18,
@@ -137,7 +145,7 @@ class ShardedKmerTable:
         claims = [torch.zeros_like(c) for c in self.group_claims]
         self._each_group(slots, claims, self.group_slots)
         self.group_slots, self.group_claims = slots, claims
-        self._pointers = None
+        self.fence.written(self.devices)
 
     def _each_group(self, slots, claims, sources, amounts=None) -> None:
         """One windowed ``hash_insert`` a group: ``sources[d]`` (a batch
@@ -162,6 +170,7 @@ class ShardedKmerTable:
         self._maybe_grow(kmers.shape[0])
         self._each_group(self.group_slots, self.group_claims,
                          [kmers.to(dev) for dev in self.devices], amounts)
+        self.fence.written(self.devices)
         return self
 
     def ingest_codes(self, codes) -> "ShardedKmerTable":
@@ -184,24 +193,22 @@ class ShardedKmerTable:
                     hash_insert(self.group_slots[d], self.group_claims[d],
                                 src.to(self.devices[d]).view(-1, 2),
                                 shard_lo=lo, n_shards=self.n_shards)
+        self.fence.written(self.devices)
         return self
 
     # -- queries -----------------------------------------------------------------
 
     def lookup_directional(self, queries) -> np.ndarray:
-        """Counts (uint32) of directional k-mers: one lookup on
+        """Counts (uint32) of directional k-mers: one wave on
         ``device``, each canonical query answered by the shard that owns
         it: in the one group's ``[S, cap, 2]`` tensor, or, over several
         groups, through the shards' pointer table."""
-        queries = batch_keys(queries, self.device)
-        if len(self.group_slots) == 1:
-            out = hash_lookup(self.group_slots[0], queries, self.k)
-        else:
-            if self.device.type == "cuda" and self._pointers is None:
-                self._pointers = slot_pointers(self.group_slots, self.device)
-            out = hash_lookup(self.group_slots, queries, self.k,
-                              self._pointers)
-        return out.cpu().numpy().view(np.uint32)
+        slots = (self.group_slots[0] if len(self.group_slots) == 1
+                 else self.group_slots)
+        waves = self._waves
+        if waves is None or waves.slots is not slots:
+            waves = self._waves = LookupWaves(slots, self.device, self.fence)
+        return waves(queries, self.k)
 
     def histogram(self, histo_max: int) -> np.ndarray:
         """uint64 vector of length histo_max+2 over every shard: a

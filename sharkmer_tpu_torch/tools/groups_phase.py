@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     ctx = cs.instrument(torch, kernels)
     runs = {}
     cs.placement_phase(ctx, np, card, latency, "placement", devices, record,
-                       runs, load=False)
+                       runs, {}, load=False)
     cs.check_group_runs(runs, "placement", len(devices))
     kept = {name: rec if name == "peer_dram_ns" else
             {k: v for k, v in rec.items() if k.endswith(("ms", "ns"))}

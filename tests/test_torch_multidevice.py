@@ -203,11 +203,11 @@ def test_lookup_reads_one_group_without_pointers(monkeypatch, reads,
     _genome, rs = reads
     seen = []
 
-    def spy(slots, queries, k=0, pointers=None):
+    def spy(slots, device, fence):
         seen.append(isinstance(slots, torch.Tensor))
-        return hk.hash_lookup(slots, queries, k, pointers)
+        return hk.LookupWaves(slots, device, fence)
 
-    monkeypatch.setattr(sharded_table, "hash_lookup", spy)
+    monkeypatch.setattr(sharded_table, "LookupWaves", spy)
     one = ShardedKmerTable.create(17, 4, 1 << 8, ["cpu"])
     got = ShardedKmerTable.create(17, 4, 1 << 8, _cpus(n_devices))
     for codes in _batches(rs, 2):
