@@ -17,9 +17,12 @@ shard groups that ``SHARKMER_TORCH_DEVICES`` lists (the code path of
 four cards on one: ``cuda:0,cuda:0,cuda:0,cuda:0``). ``--long-k`` runs
 phases 1, 2 and 23 alone (k=31); ``--entries`` phases 1, 2, phase 4's
 run and phase 24 (the record-stream entries); ``--panels`` phases 1, 2
-and 25 (the built-in panels); ``--waves`` phases 1, 2 and the lookup
-wave path's checks (``wave_checks``, ``late_wave``) on tables of random
-keys, with the wave's times at 4^0 to 4^10 queries (``wave_times``).
+and 25 (the built-in panels); ``--options`` phases 1, 2 and 26 (the
+options no other phase runs); ``--profiles`` phases 1, 2 and 21 (the
+profilers, which the whole script no longer runs); ``--waves`` phases 1,
+2 and the lookup wave path's checks (``wave_checks``, ``late_wave``) on
+tables of random keys, with the wave's times at 4^0 to 4^10 queries
+(``wave_times``).
 
 Phases, each printed on its own lines; every check raises on failure:
 
@@ -171,9 +174,11 @@ Phases, each printed on its own lines; every check raises on failure:
     and a markdown report new in ``build/grid/results/``; then ``python
     -m sharkmer_tpu_torch.tools.bench --quick``, whose JSON line must
     report every gene of the panel recovered;
-21. the profilers, each a subprocess: ``tools/ingest_phase.py`` at the
-    cell's k, at 2^27 keys (the drain path's stages, each drain
-    launching its kernels) and with ``--fastq`` on the 8M cnidaria FASTQ
+21. (only with ``--profiles``: they time tools that
+    ``tests/test_torch_profile_tools.py`` holds on the CPU and drive no
+    path that phases 4 and 19 do not) the profilers, each a subprocess:
+    ``tools/ingest_phase.py`` at the cell's k, at 2^27 keys (the drain
+    path's stages, each drain launching its kernels) and with ``--fastq`` on the 8M cnidaria FASTQ
     (the host stages of the CLI's ingest, its reads, bases and k-mers
     those of the committed 8M cell), in one process;
     ``tools/cold_start.py`` bare (a fresh process's stages),
@@ -233,7 +238,30 @@ Phases, each printed on its own lines; every check raises on failure:
     embedded amplicon (up to 1% substitutions); insecta's 1M run again
     with ``--mirror full`` and ``--backend hash``, byte-identical to its
     sorted run. Each run prints its ``panel_scan`` widths and retries,
-    closure calls and retries, and genes amplified.
+    closure calls and retries, and genes amplified;
+26. the options no other phase runs: first phase 23's kernel checks
+    (``reach_closure``, ``probe_rows``, ``hash_insert``, ``hash_lookup``
+    and its wave path against their plain versions) at k=25 and k=27;
+    then, each on the first 250k cnidaria reads and byte-identical
+    (``.dot`` files too) to its JAX oracle in
+    ``oracles/cnidaria/synthetic-seed0/<name>_250000/``: ``-k 25`` sorted
+    at the CLI's default ``-t`` (one thread) and ``--backend hash``,
+    ``-k 27`` sorted and hash (the JAX reach's packed and unpacked
+    probes on either side of k=25), ``--read-threading`` with cnidaria's
+    18S pair inline (its Pass 2 and threading log counts those of the
+    JAX CLI), ``--min-kmer-count 4 --dump-graph`` sorted and ``--backend
+    hash --mirror device``, ``--backend hash --table-capacity 131072``,
+    and the graph-walk limits (``--node-budget-global``,
+    ``--max-dfs-states``, ``--max-node-visits``,
+    ``--max-paths-per-pair``), which must stop genes the unlimited run
+    amplifies; the default ``-t`` run must run every gene on the calling
+    thread, and ``--table-capacity`` must grow the table more often than
+    the default capacity does. Last, on the knob fixture
+    ``oracles/knobs/knobs.fastq`` (no gene of the cnidaria reads has a
+    cycle or a second path), the run without limits, with
+    ``--max-node-visits 1`` and with ``--max-paths-per-pair 1``, each
+    byte-identical to its oracle in ``oracles/knobs/``; each limit must
+    find fewer paths and keep fewer products than the run without.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -252,19 +280,21 @@ and ``run_starts`` and ``stitch_rows`` in its 4M and 8M sorted runs
 runs),
 ``reach_closure`` in phases 4, 5, 7, 11 (sorted), 14, 17 (sorted), 18
 (sorted), 19 (sorted), 22 (sorted), 23 (sorted, but ``--mirror full``),
-24 and 25 (sorted; with ``run_ends`` and ``probe_rows``, and past 250k
-reads ``run_starts`` and ``stitch_rows``) at least once per closure call
+24, 25 (sorted; with ``run_ends`` and ``probe_rows``, and past 250k
+reads ``run_starts`` and ``stitch_rows``) and 26 (sorted, with
+``run_ends``) at least once per closure call
 (the run's
 ``closures`` sPCR phase), where ``probe_rows`` may launch no more often
 than that, the
 plain closure loop must never run and no sorted store's host mirror may be built
 (sharded or not). ``hash_insert`` must launch in phases 9, 11 (hash),
-12, 15, 16, 17 (hash), 18 (hash), 22 (hash) and 23 (hash), once per
+12, 15, 16, 17 (hash), 18 (hash), 22 (hash), 23 (hash) and 26 (hash),
+once per
 insert of a
 batch, merge
 and grow of a hash table and device group (one routed launch for all
 shards of a group; also in phase 19's and 25's hash runs), ``hash_lookup`` in
-phases 10, 15 and 18 (``--mirror
+phases 10, 15, 18 and 26 (``--mirror
 device``), once per lookup wave, and none of the sorted store's kernels
 in those hash runs;
 ``KmerTable.to_sorted_arrays`` (the host mirror) runs once in phases 9
@@ -290,6 +320,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -400,6 +431,56 @@ PANEL_ORACLE_READS = 250_000
 PANEL_DEPTHS = {p: (M, 8 * M) if p == "insecta" else (M,)
                 for p in BUILTIN_SEEDS}
 INSECTA_1M = (("full", ("--mirror", "full")), ("hash", ("--backend", "hash")))
+# phase 26: the options no other phase runs, each on the first
+# OPTIONS_READS reads against its own JAX oracle (made on the CPU with the
+# same flags: oracles/README.md); the k-mer kernels also at OPTION_KS
+OPTIONS_READS = 250_000
+OPTION_KS = (25, 27)
+# cnidaria's 18S pair as one inline spec (cli.parse_pcr_primers_string)
+SPEC_18S = ("name=18S,forward=AACCTGGTTGATCCTGCCAGT,"
+            "reverse=TGATCCTTCTGCAGGTTCACCTAC,min-length=1600,"
+            "max-length=2000")
+# the graph-walk limits, each binding on this input where it can
+# (oracles/README.md): 28S_1's graph passes the node budget, 18S's
+# walk the DFS states
+WALK_LIMITS = ("--node-budget-global", "2500", "--max-dfs-states", "1000",
+               "--max-node-visits", "1", "--max-paths-per-pair", "1")
+# --max-node-visits and --max-paths-per-pair find one path a gene and no
+# cycle on those reads, so neither can bind there: each also runs on the
+# knob fixture of tests/test_torch_cli_knobs.py (its 18S reads with a
+# cycle and bubbles, committed as knobs.fastq in KNOB_DIR), against its own
+# JAX oracle in KNOB_DIR/<name>/, and must find fewer paths and keep fewer
+# products than the unlimited run there; (label, oracle, CLI arguments)
+KNOB_DIR = os.path.join(HERE, "oracles", "knobs")
+KNOB_SPEC = ("forward=AACCTGGTTGATCCTGCCAGT,reverse=TGATCCTTCTGCAGGTTCACCTAC,"
+             "name=18s,max-length=2500,min-count=2")
+KNOB_RUNS = (
+    ("knobs_free", "free", ()),
+    ("knobs_max_node_visits", "max_node_visits", ("--max-node-visits", "1")),
+    ("knobs_max_paths_per_pair", "max_paths_per_pair",
+     ("--max-paths-per-pair", "1")),
+)
+# (label, oracle directory, CLI arguments, k, -t: None for the CLI's
+# default of one thread); every run but the inline pair's names the
+# cnidaria panel file
+OPTION_RUNS = (
+    ("options_k25_sorted", "k25", (), 25, None),
+    ("options_k25_hash", "k25", ("--backend", "hash"), 25, "8"),
+    ("options_k27_sorted", "k27", (), 27, "8"),
+    ("options_k27_hash", "k27", ("--backend", "hash"), 27, "8"),
+    ("options_read_threading", "read_threading",
+     ("-v", "--read-threading"), K, "8"),
+    ("options_min_count4_sorted", "min_count4_dump",
+     ("--min-kmer-count", "4", "--dump-graph"), K, "8"),
+    ("options_min_count4_device", "min_count4_dump",
+     ("--min-kmer-count", "4", "--dump-graph", "--backend", "hash",
+      "--mirror", "device"), K, "8"),
+    ("options_table_capacity", "table_capacity",
+     ("--backend", "hash", "--table-capacity", str(1 << 17)), K, "8"),
+    ("options_walk_limits", "walk_limits", ("-v", *WALK_LIMITS), K, "8"),
+)
+# the log lines of --read-threading whose counts must be the JAX CLI's
+THREADING_LINES = ("Pass 2: collected", "Read threading:", "Threading:")
 AMPLICON_SUBST = 0.01  # tools/synth.py's substitution rate a read base
 READS_PER_TURN = 1000  # the reads a chunk takes in turn (io.rs:355-361)
 HISTO_MAX = 10000  # the CLI's --histo-max default
@@ -1201,9 +1282,11 @@ class _RunLog(logging.Handler):
         self.lines: list[str] = []
         self.fallbacks: list[str] = []
         self.closures: list[str] = []  # _drive_closure's lines (-vv)
+        self.messages: list[str] = []  # every message of the last run
 
     def emit(self, record):
         msg = record.getMessage()
+        self.messages.append(msg)
         if msg.startswith("reach: "):
             self.closures.append(msg)
         if "stage walls:" in msg or "sPCR phases:" in msg:
@@ -1236,6 +1319,7 @@ def instrument(torch, kernels):
     from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
     from sharkmer_tpu_torch.parallel.sorted_sharded import ShardedSortedStore
 
+    from sharkmer_tpu_torch import stats
     from sharkmer_tpu_torch.ops import sorted_store
 
     run_log = _RunLog()
@@ -1244,7 +1328,7 @@ def instrument(torch, kernels):
         torch=torch, kernels=kernels, run_log=run_log, mirror_builds=[],
         plain_closures=[], hash_exports=[], shard_exports=[],
         hash_grows=[], lookup_waves=[], table_calls=[], panel_scans=[],
-        merges=[], lookup_table=None)
+        merges=[], gene_threads=[], lookup_table=None)
 
     def counted(cls, name, event):
         """Wrap ``cls.name`` to append ``event(args)`` per call."""
@@ -1300,6 +1384,10 @@ def instrument(torch, kernels):
 
     counted(KmerTable, "lookup_directional", wave)
     counted(ShardedKmerTable, "lookup_directional", wave)
+    # the thread of each gene's sPCR: the caller's in run_pcr's
+    # sequential branch (-t 1), a pool's under -t N
+    counted(stats, "do_pcr",
+            lambda a: ctx.gene_threads.append(threading.get_ident()))
     # on the card the closure must never fall back to its torch loop
     counted(closure, "closure_plain",
             lambda a: ctx.plain_closures.append(1))
@@ -1370,28 +1458,34 @@ def closure_retries(closure_lines) -> list[tuple[int, int]]:
 
 def drive_main_path(ctx, label: str, n_reads: int, extra=(),
                     fastq: bool = True, oracle: str | None = None,
-                    panel: str = "cnidaria", k: int = K, before_check=None):
+                    panel: str = "cnidaria", k: int = K, before_check=None,
+                    threads: str | None = "8", primers=None,
+                    sample: str | None = None):
     """One CLI run of ``panel``'s cell at ``n_reads`` and ``-k k`` (from the
     panel's FASTQ, or, with ``fastq=False``, from the checkpoint, files or
     stdin that ``extra`` names; a built-in panel of BUILTIN_SEEDS by
-    name, the grid's from its file), held to the outputs in ``oracle`` (by
-    default the JAX package's committed cell of ``panel`` at ``n_reads``)
-    by ``check_outputs``; ``before_check(out, sample)``, where given, runs
-    first (it may write ``oracle``). Prints every card's peak. Returns (the
-    kernels' launch counts and the run's table counters, its stage-walls
-    line)."""
+    name, the grid's from its file, or the CLI arguments ``primers``
+    instead), at ``-t threads`` (None: the CLI's default), as ``sample``
+    (by default the cell's name), held to the
+    outputs in ``oracle`` (by default the JAX package's committed cell of
+    ``panel`` at ``n_reads``) by ``check_outputs``; ``before_check(out,
+    sample)``, where given, runs first (it may write ``oracle``). Prints
+    every card's peak. Returns (the kernels' launch counts and the run's
+    table counters, its stage-walls line); the run's log messages stay in
+    ``ctx.run_log.messages`` until the next run."""
     from sharkmer_tpu_torch.main import main
 
     torch, kernels, run_log = ctx.torch, ctx.kernels, ctx.run_log
-    sample = f"synthetic-seed{SEEDS[panel]}_{n_reads}"
+    sample = sample or f"synthetic-seed{SEEDS[panel]}_{n_reads}"
     oracle = oracle or oracle_of(panel, n_reads)
     out = os.path.join(OUT_DIR, label)
     shutil.rmtree(out, ignore_errors=True)
     # the built-in panels of phase 25 by name, as their users name them;
     # the grid's through the panel file, as its committed cells were made
-    by = (("--pcr-panel", panel) if panel in BUILTIN_SEEDS
-          else ("--pcr-panel-file", PANELS[panel]))
-    argv = ["-s", sample, "-k", str(k), "-t", "8", "-o", out, *by, *extra]
+    by = primers or (("--pcr-panel", panel) if panel in BUILTIN_SEEDS
+                     else ("--pcr-panel-file", PANELS[panel]))
+    argv = ["-s", sample, "-k", str(k),
+            *(("-t", threads) if threads else ()), "-o", out, *by, *extra]
     if fastq:
         argv += ["-m", str(n_reads), FASTQS[panel]]
     ctx.lookup_table = None  # the last run's, if cli_wave_times kept it
@@ -1399,9 +1493,11 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
         torch.cuda.reset_peak_memory_stats(index)
     n_lines = len(run_log.lines)
     run_log.closures.clear()
+    run_log.messages.clear()
     for events in (ctx.mirror_builds, ctx.plain_closures, ctx.hash_exports,
                    ctx.shard_exports, ctx.hash_grows, ctx.lookup_waves,
-                   ctx.table_calls, ctx.panel_scans, ctx.merges):
+                   ctx.table_calls, ctx.panel_scans, ctx.merges,
+                   ctx.gene_threads):
         events.clear()
     for fn in kernels.values():
         fn.launches = 0
@@ -1425,6 +1521,11 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     # lookup waves that each launch hash_lookup once
     counts["table_calls"] = len(ctx.table_calls)
     counts["lookup_waves"] = sum(1 for n in ctx.lookup_waves if n)
+    counts["hash_grows"] = len(ctx.hash_grows)
+    # the gene threads, and whether every gene ran on the calling thread
+    counts["gene_threads"] = len(set(ctx.gene_threads))
+    counts["genes_on_caller"] = set(ctx.gene_threads) == {
+        threading.get_ident()}
     walls = next(line for line in lines if "stage walls:" in line)
     print(f"{label}: CLI wall {wall:.3f} s; {walls}")
     for line in lines:
@@ -1676,24 +1777,24 @@ def chunked_phase(ctx, runs: dict, n_cards: int,
               f"run: {n_cards} card(s) visible", flush=True)
 
 
-def long_k_kernels(torch, np, card: str) -> dict:
-    """Phase 23 (0): the kernels whose k-dependent code first runs at
-    k = 31 (62-bit neighbour masks, a revcomp shift of 2) against their
-    plain versions on the card. ``reach_closure`` on a LONG_K_ROWS-row
-    k=31 ``closure_table``: the narrow roots of ``closure_cases`` on one
+def long_k_kernels(torch, np, card: str, k: int = LONG_K) -> dict:
+    """Phase 23 (0) at k = 31, phase 26 at OPTION_KS: the kernels whose
+    k-dependent code runs past the packed count field (at k = 31 62-bit
+    neighbour masks, a revcomp shift of 2) against their plain versions
+    on the card. ``reach_closure`` on a LONG_K_ROWS-row k-mer
+    ``closure_table``: the narrow roots of ``closure_cases`` on one
     partition, its wide roots on LONG_K_PARTS key-range partitions, and a
     warm start whose ``pre`` rows come from ``probe_rows`` (held to its
-    plain version too); ``hash_insert`` of the k=31 k-mers of the FASTQ's
+    plain version too); ``hash_insert`` of the k-mers of the FASTQ's
     first HASH_READS reads into a fresh table, and the directional
-    ``hash_lookup`` (k = 31) of their reverse complements and as many
-    random keys. Returns ``{name: {max_abs_err, ms, plain_ms}}``."""
+    ``hash_lookup`` of their reverse complements and as many random keys.
+    Returns ``{name: {max_abs_err, ms, plain_ms}}``."""
     from sharkmer_tpu_torch.kernels import closure, probe
     from sharkmer_tpu_torch.kernels import hash as hk
     from sharkmer_tpu_torch.ops import reach
     from sharkmer_tpu_torch.ops.histogram import revcomp
     from sharkmer_tpu_torch.ops.keys import keys_to_device, keys_to_numpy
 
-    k = LONG_K
     keys, counts, n_real, fwd = closure_table(np, torch, LONG_K_ROWS, k)
     tables = {"1 partition": probe.PartTable(
                   [reach.build_sidecar(keys, counts, k)], [0]),
@@ -1774,7 +1875,7 @@ def long_k_kernels(torch, np, card: str) -> dict:
           f"valid k-mers, {distinct} keys; {ms:.4f} ms vs {plain_ms:.4f} ms "
           f"plain on {card}", flush=True)
     live, _ = table_rows(torch, kern[0])
-    rng = np.random.default_rng(31)
+    rng = np.random.default_rng(k)
     queries = torch.cat([
         revcomp(live[: LOOKUP_MANY // 2], k),
         torch.from_numpy(rng.integers(0, 1 << (2 * k), LOOKUP_MANY // 2,
@@ -2197,6 +2298,163 @@ def check_panel_runs(runs) -> None:
         got = (runs[label][0]["hash_exports"], runs[label][0]["shard_exports"])
         require(got == (1, 0), f"{label}: KmerTable and ShardedKmerTable."
                 f"to_sorted_arrays ran {got} times, not (1, 0)")
+
+
+def option_labels() -> dict:
+    """Phase 26's run labels: {"sorted": the runs on the sorted store's
+    reach closure (KNOB_RUNS among them), "hash": the hash table's,
+    "device": those of them under ``--mirror device``}."""
+    hashed = [label for label, _, extra, _, _ in OPTION_RUNS
+              if "hash" in extra]
+    return {"sorted": [label for label, *_ in OPTION_RUNS
+                       if label not in hashed]
+            + [label for label, *_ in KNOB_RUNS],
+            "hash": hashed,
+            "device": [label for label, _, extra, _, _ in OPTION_RUNS
+                       if "device" in extra]}
+
+
+def threading_lines(messages) -> list[str]:
+    """The THREADING_LINES of a run's log without their walls, sorted
+    (the gene threads log in any order)."""
+    return sorted(m.split(" Time: ")[0] for m in messages
+                  if any(line in m for line in THREADING_LINES))
+
+
+def paths_found(messages) -> int:
+    """The paths a run's walks found, from its ``Found N paths`` lines."""
+    return sum(int(m.split("Found ")[1].split(" paths")[0])
+               for m in messages if "Found " in m and " paths" in m)
+
+
+def gene_results(stats_path: str) -> dict:
+    """{gene: its failure reason, or None where it was amplified}."""
+    import yaml
+
+    with open(stats_path) as f:
+        return {r["gene_name"]: r.get("failure_reason")
+                for r in yaml.safe_load(f)["pcr_results"]}
+
+
+def options_phase(ctx, np, runs: dict, card: str) -> dict:
+    """Phase 26: the paths of the CLI no other phase runs, each on the
+    first OPTIONS_READS reads and byte-identical to its JAX oracle in
+    ``oracles/cnidaria/synthetic-seed0/<name>_250000/`` (OPTION_RUNS):
+    k = 25 (the JAX reach's packed probe) sorted at the CLI's default
+    ``-t`` (one thread: ``run_pcr``'s sequential branch) and hash, k = 27
+    (its unpacked probe) sorted and hash; ``--read-threading`` with
+    cnidaria's 18S pair inline, its Pass 2 and threading counts those of
+    the JAX CLI's log; ``--min-kmer-count 4 --dump-graph`` sorted and
+    ``--backend hash --mirror device`` (every ``.dot`` file compared);
+    ``--backend hash --table-capacity 2^17``; the graph-walk limits
+    (WALK_LIMITS), which must stop genes that the unlimited run of the
+    same reads amplifies; then KNOB_RUNS, where ``--max-node-visits`` and
+    ``--max-paths-per-pair`` bind. First ``long_k_kernels`` at each k of
+    OPTION_KS. Returns ``{k: long_k_kernels' record}``."""
+    torch = ctx.torch
+    record = {}
+    for k in OPTION_KS:
+        start = time.monotonic()
+        record[k] = long_k_kernels(torch, np, card, k)
+        print(f"the kernels at k={k}: {time.monotonic() - start:.1f} s",
+              flush=True)
+        torch.cuda.empty_cache()
+    base = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0")
+    for label, name, extra, k, threads in OPTION_RUNS:
+        torch.cuda.empty_cache()
+        oracle = os.path.join(base, f"{name}_{OPTIONS_READS}")
+        primers = (("--pcr-primers", SPEC_18S) if name == "read_threading"
+                   else None)
+        runs[label] = drive_main_path(
+            ctx, label, OPTIONS_READS, extra, oracle=oracle, k=k,
+            threads=threads, primers=primers)
+        if threads is None:
+            print(f"{label}: at the CLI's default -t (one thread: the gene "
+                  f"pairs in turn, each closure and wave on one thread)",
+                  flush=True)
+        if name == "read_threading":
+            got = threading_lines(ctx.run_log.messages)
+            with open(f"{oracle}.threading.txt") as f:
+                want = f.read().splitlines()
+            require(got == want, f"{label}: the threading log lines {got} "
+                    f"are not the JAX CLI's {want}")
+            print(f"{label}: {got} as in the JAX CLI's log", flush=True)
+        if name == "walk_limits":
+            sample = f"synthetic-seed0_{OPTIONS_READS}"
+            limited = gene_results(os.path.join(
+                OUT_DIR, label, f"{sample}.stats.yaml"))
+            free = gene_results(os.path.join(CHUNK_ORACLE,
+                                             f"{sample}.stats.yaml"))
+            stopped = {gene: reason for gene, reason in limited.items()
+                       if reason and free[gene] is None}
+            require({"node budget exceeded", "no path found"}
+                    <= set(stopped.values()),
+                    f"{label}: the limits stopped {stopped} of the genes "
+                    f"the unlimited run amplifies")
+            abandoned = [m for m in ctx.run_log.messages
+                         if "abandoning search" in m]
+            print(f"{label}: {WALK_LIMITS} stopped {stopped}; "
+                  f"{abandoned}", flush=True)
+    found = {}
+    for label, name, extra in KNOB_RUNS:
+        runs[label] = drive_main_path(
+            ctx, label, 0, ("-v", "--dump-graph", *extra,
+                            os.path.join(KNOB_DIR, "knobs.fastq")),
+            fastq=False, oracle=os.path.join(KNOB_DIR, name), k=21,
+            primers=("--pcr-primers", KNOB_SPEC), sample="knobs")
+        with open(os.path.join(OUT_DIR, label, "knobs_18s.fasta")) as f:
+            products = f.read().count(">")
+        found[name] = (paths_found(ctx.run_log.messages), products)
+    free = found.pop("free")
+    for name, (paths, products) in found.items():
+        require(paths < free[0] and products < free[1],
+                f"knobs_{name}: {paths} paths found, {products} products "
+                f"kept; unlimited {free[0]} and {free[1]}")
+    print(f"knobs: (paths found, products kept) unlimited {free}, "
+          f"{found}", flush=True)
+    return record
+
+
+def check_option_runs(runs) -> None:
+    """Phase 26's runs beside ``required_launches``: the sorted runs
+    launch no hash kernel and no ``stitch_rows`` (one ghosted drain at
+    this depth, none past k = 21); each hash run as ``check_hash_run``,
+    its host mirror built once, but under ``--mirror device`` (none, a
+    ``hash_lookup`` a wave); the run at the CLI's default ``-t`` ran every
+    gene on the calling thread (``run_pcr``'s sequential branch), a run
+    at ``-t 8`` none; the ``--table-capacity`` run's table grew more often
+    than the default capacity's in the k = 19 ``--mirror device`` run."""
+    labels = option_labels()
+    for label, _, _, _, threads in OPTION_RUNS:
+        counts = runs[label][0]
+        got = (counts["genes_on_caller"], counts["gene_threads"])
+        require(got[0] == (threads is None) and got[1] >= 1,
+                f"{label} at -t {threads}: genes on the calling thread "
+                f"{got[0]}, {got[1]} gene threads")
+    grows = [runs[label][0]["hash_grows"] for label in
+             ("options_table_capacity", "options_min_count4_device")]
+    require(grows[0] > grows[1], f"--table-capacity {1 << 17}: {grows[0]} "
+            f"grows, the default capacity {grows[1]}")
+    print("phase 26: each run's gene threads and whether every gene ran "
+          "on the calling thread: " + ", ".join(
+              f"{label} {runs[label][0]['gene_threads']} "
+              f"{runs[label][0]['genes_on_caller']}"
+              for label, *_ in OPTION_RUNS)
+          + f"; hash grows at 2^17 {grows[0]}, by default {grows[1]}",
+          flush=True)
+    for label in labels["sorted"]:
+        counts = runs[label][0]
+        require(not counts["hash_insert"] and not counts["stitch_rows"],
+                f"{label}: hash_insert {counts['hash_insert']}, "
+                f"stitch_rows {counts['stitch_rows']}")
+    for label in labels["hash"]:
+        check_hash_run(runs, label, 1)
+        device = label in labels["device"]
+        got = (runs[label][0]["hash_exports"], runs[label][0]["lookup_waves"]
+               > 0)
+        require(got == (int(not device), device),
+                f"{label}: {got[0]} host mirror builds, lookup waves "
+                f"{got[1]}")
 
 
 def run_scan_phase(torch, np, card: str, kernels) -> dict:
@@ -3550,9 +3808,12 @@ def required_launches() -> dict:
     # --mirror full run, whose ingest is the 1M run's)
     panels = panel_labels()
     deep = (*panels["deep"], *panels["full"])
+    # phase 26: each sorted run its ghosted first drain and the closures,
+    # each hash run its inserts, the --mirror device run its waves
+    options = option_labels()
     return {"run_ends": ("default", "max_agg_2^24", *k31_drains, "k31_1M",
                          "k31_mirror_full_1M", *entries, *panels["sorted"],
-                         *panels["full"]),
+                         *panels["full"], *options["sorted"]),
             "run_starts": ("default", "max_agg_2^24", "shards",
                            *chunked_sorted, *k31_drains, "k31_shards_1M",
                            *entries, *deep),
@@ -3561,12 +3822,14 @@ def required_launches() -> dict:
             "stitch_rows": ("max_agg_2^24", "4M", *deep),
             "reach_closure": ("default", "max_agg_2^24", "4M",
                               "load_sorted", "shards", *chunked_sorted,
-                              *k31_closures, *entries, *panels["sorted"]),
+                              *k31_closures, *entries, *panels["sorted"],
+                              *options["sorted"]),
             "hash_insert": ("hash", "load_hash", "hash_4M",
                             "shards_hash", "shards_hash_device",
                             "shards_load", *chunked_hash, *k31_hash,
-                            *panels["hash"]),
-            "hash_lookup": ("hash_device", "shards_hash_device")}
+                            *panels["hash"], *options["hash"]),
+            "hash_lookup": ("hash_device", "shards_hash_device",
+                            *options["device"])}
 
 
 def check_required(runs, present_only: bool = False) -> None:
@@ -3592,14 +3855,17 @@ def main() -> int:
     args = sys.argv[1:]
     require(args in ([], ["--closure-times"], ["--chunked"],
                      ["--chunked-cards"], ["--long-k"], ["--entries"],
-                     ["--panels"], ["--waves"]),
+                     ["--panels"], ["--waves"], ["--options"],
+                     ["--profiles"]),
             f"unknown arguments {args}: none, --closure-times, --chunked, "
-            f"--chunked-cards, --long-k, --entries, --panels or --waves")
+            f"--chunked-cards, --long-k, --entries, --panels, --waves, "
+            f"--options or --profiles")
     # the options that run one phase after phases 1 and 2 (and, for
     # --entries, phase 4's run, its ingest wall the one to compare with)
     chunked_only = args in (["--chunked"], ["--chunked-cards"])
     alone = chunked_only or args in (["--long-k"], ["--entries"],
-                                     ["--panels"])
+                                     ["--panels"], ["--options"],
+                                     ["--profiles"])
     # the panels whose FASTQ phase 1 starts: each option's; the whole
     # script's grid panels (phase 25's start after phase 3, so that
     # phases 2 and 3, the builds, the timed kernels and their profiler
@@ -3704,6 +3970,16 @@ def main() -> int:
                     wait_fastq(panel)
                 panels_phase(ctx, runs)
                 check_panel_runs(runs)
+            elif args == ["--options"]:
+                phase("26. the options the card has never run (alone: "
+                      "--options)")
+                options_phase(ctx, np, runs, card)
+                check_option_runs(runs)
+            elif args == ["--profiles"]:
+                phase("21. the profilers: ingest_phase at 2^27 keys and on "
+                      "the 8M FASTQ, cold_start bare and --cli on the 1M "
+                      "cell (alone: --profiles)")
+                profile_phase()
             else:
                 phase("4. main path: 1M reads, cnidaria panel (for --entries)")
                 runs["default"] = drive_main_path(ctx, "default", M)
@@ -3876,9 +4152,8 @@ def main() -> int:
         phase("20. the tools: run_grid on the metazoa 1M cell, bench --quick")
         tools_phase()
 
-        phase("21. the profilers: ingest_phase at 2^27 keys and on the 8M "
-              "FASTQ, cold_start bare and --cli on the 1M cell")
-        profile_phase()
+        phase("21. the profilers: not run (python3 chip_smoke.py "
+              "--profiles runs them)")
 
         phase(f"22. chunked spectra at depth: the reference against "
               f"{os.path.relpath(CHUNK_ORACLE, HERE)}, then --chunks 10 at "
@@ -3903,6 +4178,13 @@ def main() -> int:
         for panel in BUILTIN_SEEDS:
             wait_fastq(panel)
         panels_phase(ctx, runs)
+
+        phase(f"26. the options the card has never run: the kernels at k="
+              f"{' and '.join(map(str, OPTION_KS))}, then {OPTIONS_READS} "
+              f"reads at k=25 (default -t) and 27, --read-threading, "
+              f"--min-kmer-count 4 --dump-graph, --table-capacity 2^17 and "
+              f"the graph-walk limits against their JAX oracles")
+        record["options"] = options_phase(ctx, np, runs, card)
     finally:
         for child in synth.values():
             child.kill()
@@ -3956,6 +4238,7 @@ def main() -> int:
     check_chunked_runs(runs)
     check_long_k_runs(runs)
     check_panel_runs(runs)
+    check_option_runs(runs)
 
     parts = f"{CLOSURE_PARTS} partitions"
     shards = f"{CLOSURE_SHARDS} shards"
@@ -4022,12 +4305,15 @@ def main() -> int:
         if name == "hash_lookup":
             # numpy to numpy on each --mirror device run's table
             rec["waves"] = waves
-        # phase 23: the kernel at k=31 (k31_[call_]<field>)
-        for key, value in record["k31"].items():
-            if key.split()[0] == name:
-                call = "_".join(key.split()[1:])
-                rec.update({f"k31_{call + '_' if call else ''}{field}": v
-                            for field, v in value.items()})
+        # phases 23 and 26: the kernel at k=31, 25 and 27
+        # (k<k>_[call_]<field>)
+        for k, long_k in ((LONG_K, record["k31"]),
+                          *record["options"].items()):
+            for key, value in long_k.items():
+                if key.split()[0] == name:
+                    call = "_".join(key.split()[1:])
+                    rec.update({f"k{k}_{call + '_' if call else ''}{field}":
+                                v for field, v in value.items()})
         # phase 18: the same kernel on the shards of each placement
         for tag, (label, _) in group_labels.items():
             if name in ("hash_insert", "hash_lookup"):

@@ -41,8 +41,12 @@ COPIES = [
 # builds its library into the port's build directory, not native/; the
 # synthesizer returns the amplicons it embeds (its reads stay the
 # original's byte for byte: test_synth_writes_the_same_reads and
-# tests/test_torch_panels.py).
+# tests/test_torch_panels.py); the read filter encodes a slab of reads
+# at once with numpy (it keeps the reads the JAX filter keeps:
+# tests/test_torch_read_filter.py).
 ALLOWED = {"sharkmer_tpu_torch/io/native.py": {"_LIB", "_build"},
+           "sharkmer_tpu_torch/pcr/read_filter.py": {
+               "PrimerReadFilter", "_CODES", "CELLS", "_slabs", "_windows"},
            "sharkmer_tpu_torch/tools/synth.py": {
                "synthesize_panel_fastq", "embed_amplicons",
                "panel_amplicons"}}

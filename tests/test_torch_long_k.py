@@ -229,6 +229,39 @@ def test_long_k_reach_depth_capped_and_warm_start_match_jax(reach_stores):
     assert len(got2.keys) and not np.isin(pre, got2.keys).all()
 
 
+# the saturating count field of JAX's packed probe at k = 25: 64 - 2k bits
+PACKED_CAP = (1 << 14) - 1
+
+
+@pytest.fixture(scope="module")
+def deep_count_stores():
+    """k = 25 with 17,500 more reads of one 80-base window: its k-mers'
+    counts pass the 14-bit field of JAX's packed probe."""
+    k = 25
+    genome = random_genome(1500, seed=125)
+    reads = (reads_from_genome(genome, 750, 80, seed=126)
+             + [genome[600:680]] * 17_500)
+    codes = codes_to_batch([ascii_to_codes(r) for r in reads])
+    return k, genome, _stores(codes, k)
+
+
+@pytest.mark.parametrize("mc", [2, PACKED_CAP - 1, PACKED_CAP, 17_000])
+def test_long_k_reach_counts_past_the_packed_field_match_jax(
+        deep_count_stores, mc):
+    """JAX's packed probe (floors below PACKED_CAP) tests the floor
+    against min(count, PACKED_CAP); from PACKED_CAP on it takes its
+    unpacked probe. Either way the keys, the true counts (above the
+    field) and the boundary must be the port's."""
+    k, genome, (jstore, tstore) = deep_count_stores
+    roots = np.array([seq_to_kmer(genome[620 : 620 + k])], np.uint64)
+    want = jstore.reach(roots, min_count=mc, depth=4096)
+    got = tstore.reach(roots, min_count=mc, depth=4096)
+    _assert_same(got, want)
+    assert got.complete and int(got.counts.max()) > PACKED_CAP
+    if mc > 2:  # only the window's k-mers pass
+        assert len(got.keys) == 80 - k + 1
+
+
 def test_long_k_reach_multi_partition_matches_jax(monkeypatch):
     """k = 31 on a table cut into several key-range partitions."""
     monkeypatch.setenv("SHARKMER_MAX_AGG", str(1 << 9))
@@ -272,3 +305,26 @@ def test_cli_k31_outputs_identical(tmp_path, monkeypatch, fastq_18s, extra):
         outs[name] = out
     _assert_same_outputs(outs["jax"], outs["torch"],
                          expect_histo=extra[0] == "--chunks")
+
+
+@pytest.mark.parametrize("extra", [[], ["--backend", "hash"]],
+                         ids=["sorted", "hash"])
+def test_cli_k27_outputs_identical(tmp_path, monkeypatch, fastq_18s, extra):
+    """Both CLIs on the 18S fixture at ``-k 27``, where the JAX reach
+    takes its unpacked gather probe (64 - 2k < 12 from k = 27 on):
+    FASTA byte-identical, ``stats.yaml`` equal but for ``command`` and
+    ``peak_memory_bytes``."""
+    from sharkmer_tpu.main import main as jax_main
+    from sharkmer_tpu_torch.main import main as torch_main
+
+    from test_cli_e2e import PRIMER_SPEC
+
+    monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
+    outs = {}
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        out = tmp_path / name
+        rc = main([fastq_18s, "-s", "samp", "-k", "27", "-o", str(out),
+                   "--pcr-primers", PRIMER_SPEC, *extra])
+        assert rc == 0, name
+        outs[name] = out
+    _assert_same_outputs(outs["jax"], outs["torch"], expect_histo=False)
