@@ -19,7 +19,9 @@ phases 1, 2 and 23 alone (k=31); ``--entries`` phases 1, 2, phase 4's
 run and phase 24 (the record-stream entries); ``--panels`` phases 1, 2
 and 25 (the built-in panels); ``--options`` phases 1, 2 and 26 (the
 options no other phase runs); ``--profiles`` phases 1, 2 and 21 (the
-profilers, which the whole script no longer runs); ``--waves`` phases 1,
+profilers, which the whole script no longer runs); ``--ingest`` phases
+1, 2 and 27 (the fused sharded ingest steps; the way to run phase 27's
+four-card placement, on four cards); ``--waves`` phases 1,
 2 and the lookup wave path's checks (``wave_checks``, ``late_wave``) on
 tables of random keys, with the wave's times at 4^0 to 4^10 queries
 (``wave_times``).
@@ -108,7 +110,14 @@ Phases, each printed on its own lines; every check raises on failure:
    every answer exact; and the one table's slots copied into a new
    table behind ``torch.cuda._sleep`` on the current stream and looked
    up at once through the wave path, exact (the table's ``WriteFence``
-   orders the wave's stream after the copy);
+   orders the wave's stream after the copy); last the freeze band
+   (``band_phase``): keys at SAT_THRESHOLD - 2, - 1, + 0 and + 5 and the
+   batch with 5 entries of each, and a merge whose source counts lie
+   near the threshold into a master that holds the same keys near it,
+   each 20 launches from one start on one table, 4 shards and 4 groups
+   (a windowed launch a group), every launch equal to
+   ``insert_plain`` and the band keys to the JAX values in BAND and
+   MERGE_BAND;
 9. the 1M cell with ``--backend hash`` (``--mirror auto`` resolves to the
    host mirror: the hash table has no reach closure) and ``--save-table
    build/chip_smoke/hash_1M.npz``, held to the same oracle as phase 4;
@@ -261,7 +270,18 @@ Phases, each printed on its own lines; every check raises on failure:
     cycle or a second path), the run without limits, with
     ``--max-node-visits 1`` and with ``--max-paths-per-pair 1``, each
     byte-identical to its oracle in ``oracles/knobs/``; each limit must
-    find fewer paths and keep fewer products than the run without.
+    find fewer paths and keep fewer products than the run without;
+27. the fused sharded ingest steps (``parallel/sharded_table.py``
+    ``make_ingest_step``, ``parallel/sorted_sharded.py``
+    ``make_sorted_ingest_step``, the JAX package's multi-chip training
+    step) on the first 2^20 cnidaria reads, 4 steps of [4, 2^16, 150]
+    codes into 4 shards of 2^25 slots (the sorted step's cap), on
+    ``[cuda:0]``, on 4 groups of the one card and, with four cards, a
+    group a card: the last step's histogram and the table (every
+    shard's rows) equal to ``chunk_spectra_reference``'s on the same
+    reads, no shard past 0.7 of its slots or at its cap, ``hash_insert``
+    launched once a group a step and ``run_starts`` once a shard a step;
+    each step's wall and each card's peak printed.
 
 Each run's output directory must hold exactly its oracle's files, each
 byte-identical but ``stats.yaml`` (equal but for ``command`` and
@@ -372,6 +392,20 @@ HASH_SHARDS = 4  # the owner-routed insert and lookup of phase 8
 # that run prints it (source slots, source keys, master slots, master keys
 # before, keys in both)
 MERGE_SHAPE = (1 << 26, 37_939_713, 1 << 28, 91_359_173, 20_669_603)
+# phase 8's band: keys near the freeze (SAT_THRESHOLD), each with the
+# count it starts at and the JAX table's count after a batch that holds
+# BAND_ENTRIES entries of it (sharkmer_tpu/ops/hashtable.py reads the
+# freeze once a round: new = old + (old < T ? the batch's sum : 0), mod
+# 2^32); BAND_REPS launches from the same start, a layout
+SAT = 0xE000_0000
+BAND_ENTRIES = 5
+BAND = ((SAT - 2, SAT + 3), (SAT - 1, SAT + 4), (SAT, SAT),
+        (SAT + 5, SAT + 5))
+# the merge's: the master's count, the source's, the JAX master's after
+MERGE_BAND = ((SAT - 2, 3, SAT + 1), (SAT - 1, 1, SAT), (SAT, 7, SAT),
+              (SAT + 5, SAT - 1, SAT + 5),
+              (SAT - 1, 0x3000_0000, (SAT - 1 + 0x3000_0000) % (1 << 32)))
+BAND_REPS = 20
 LOOKUP_WAVE = 4096
 SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep: ~50 ms at the H100's clock
 LOOKUP_MANY = 1 << 20
@@ -479,6 +513,17 @@ OPTION_RUNS = (
      ("--backend", "hash", "--table-capacity", str(1 << 17)), K, "8"),
     ("options_walk_limits", "walk_limits", ("-v", *WALK_LIMITS), K, "8"),
 )
+# phase 27: the fused sharded ingest steps (parallel/sharded_table.py
+# make_ingest_step, parallel/sorted_sharded.py make_sorted_ingest_step) on
+# the first INGEST_READS cnidaria reads, INGEST_STEP_READS a shard a step
+# over INGEST_SHARDS shards of INGEST_CAP slots (the sorted step's cap);
+# no shard may pass INGEST_LOAD of its slots
+INGEST_READS = 1 << 20
+INGEST_SHARDS = 4
+INGEST_STEP_READS = 1 << 16
+INGEST_CAP = 1 << 25
+INGEST_LOAD = 0.7
+READ_LEN = 150  # tools/synth.py's reads
 # the log lines of --read-threading whose counts must be the JAX CLI's
 THREADING_LINES = ("Pass 2: collected", "Read threading:", "Threading:")
 AMPLICON_SUBST = 0.01  # tools/synth.py's substitution rate a read base
@@ -1579,7 +1624,7 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
 
 
 def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
-                            histo_max: int, device) -> list:
+                            histo_max: int, device, with_rows: bool = False):
     """The ``n_chunks`` cumulative spectra of ``--chunks n_chunks`` on the
     first ``n_reads`` reads of ``fastq`` (0: all of them), computed
     without the code under test: the port's FASTQ loader
@@ -1590,7 +1635,9 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
     segment sum. No count store, drain, merge or hash kernel runs.
     Returns (one numpy uint64 histogram a chunk, ``histo_max + 2`` long:
     bin ``i`` the keys counted ``i`` times, bin ``histo_max + 1`` those
-    counted more often, bin 0 zero; the valid k-mers of all reads)."""
+    counted more often, bin 0 zero; the valid k-mers of all reads); with
+    ``with_rows``, also the last prefix's (sorted distinct keys, their counts)
+    as int64 tensors on ``device``."""
     import numpy as np
     import torch
 
@@ -1642,6 +1689,8 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
         histo = torch.bincount(torch.clamp(counts, max=histo_max + 1),
                                minlength=histo_max + 2)
         spectra.append(histo.cpu().numpy().astype(np.uint64))
+    if with_rows:
+        return spectra, n_kmers, (keys, counts)
     return spectra, n_kmers
 
 
@@ -3023,6 +3072,7 @@ def hash_phase(torch, np, card: str, latency: dict) -> dict:
     torch.cuda.empty_cache()
     insert.update(merge_phase(torch, card, timed))
     insert.update(window_phase(torch, kmers, n_valid, card, timed))
+    insert.update(band_phase(torch, kmers, card))
 
     # directional queries: half the batch's k-mers (half of those in
     # reverse-complement form), half random keys
@@ -3223,6 +3273,278 @@ def merge_phase(torch, card: str, timed) -> dict:
     return {
         "merge_ms": ms, "merge_plain_ms": plain_ms,
         "merge_bound_ms": (16 * src_cap + 64 * sectors) / HBM_BYTES_PER_MS}
+
+
+def band_phase(torch, kmers, card: str) -> dict:
+    """Phase 8's band: ``hash_insert`` where the freeze decides, held to
+    ``insert_plain`` and to the JAX table's values written above (BAND,
+    MERGE_BAND). Keys absent from the batch start near SAT_THRESHOLD
+    (written by the kernel, so their slots hold an earlier epoch); then
+    (insert) phase 8's batch with BAND_ENTRIES entries of each BAND key
+    at random places in it, or (merge) a 2^26-slot table holding the
+    MERGE_BAND keys at their source counts and the batch's k-mers (a hit
+    on the master for every key of the batch, into which the batch was
+    inserted once) goes in, BAND_REPS times from the same start on each
+    layout: one table, HASH_SHARDS shards in one launch, and HASH_SHARDS
+    shard groups on the card (ONE_CARD_GROUPS, one windowed launch a
+    group), read back through the groups'
+    pointer table. Every launch's rows must equal the plain version's,
+    shard by shard, and the band keys' counts the JAX values."""
+    from sharkmer_tpu_torch.device import shard_groups
+    from sharkmer_tpu_torch.kernels import hash as hk
+
+    S = HASH_SHARDS
+    layouts = {"1 table": (1, [(0, 1)]), f"{S} shards": (S, [(0, S)]),
+               f"{S} groups": (S, shard_groups(S, len(ONE_CARD_GROUPS)))}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n_keys = len(BAND) + len(MERGE_BAND)
+    absent = torch.unique(torch.randint(0, 1 << (2 * K), (4 * n_keys,),
+                                        device="cuda", generator=gen))
+    absent = absent[~torch.isin(absent, kmers)]
+    absent = absent[torch.randperm(absent.numel(), device="cuda",
+                                   generator=gen)]
+    require(absent.numel() >= n_keys, "phase 8's band: too few keys")
+    insert_keys, merge_keys = absent[:len(BAND)], absent[len(BAND):n_keys]
+    # the batch, BAND_ENTRIES entries of each insert key spread through it
+    entries = insert_keys.repeat_interleave(BAND_ENTRIES)
+    n = kmers.numel() + entries.numel()
+    spot = torch.zeros(n, dtype=torch.bool, device="cuda")
+    spot[torch.randperm(n, device="cuda", generator=gen)[:entries.numel()]] \
+        = True
+    batch = torch.empty(n, dtype=torch.int64, device="cuda")
+    batch[spot] = entries
+    batch[~spot] = kmers
+
+    def u32s(values):
+        return hk.as_i32(torch.tensor(values, dtype=torch.int64,
+                                      device="cuda"))
+
+    src = (hk.new_slots((HASH_CAP // 2,), "cuda"),
+           torch.zeros(1, dtype=torch.int64, device="cuda"))
+    hk.hash_insert(*src, merge_keys, u32s([c for _, c, _ in MERGE_BAND]))
+    hk.hash_insert(*src, kmers)
+    cases = {"insert": (insert_keys, [c for c, _ in BAND], batch,
+                        [c for _, c in BAND], False),
+             "merge": (merge_keys, [c for c, _, _ in MERGE_BAND],
+                       src[0].view(-1, 2), [c for _, _, c in MERGE_BAND],
+                       True)}
+    record = {"band_launches": 0, "band_max_abs_err": 0}
+    launches = 0  # one a group a launch of the batch
+    for layout, (n_shards, groups) in layouts.items():
+        cap = HASH_CAP // n_shards
+
+        def fresh():
+            return [(hk.new_slots((cap,) if n_shards == 1
+                                  else (hi - lo, cap), "cuda"),
+                     torch.zeros(hi - lo, dtype=torch.int64, device="cuda"))
+                    for lo, hi in groups]
+
+        def insert(tables, entries, amounts=None, fn=hk.hash_insert):
+            """One batch into every group, a windowed launch a group."""
+            for (lo, _), (slots, claims) in zip(groups, tables):
+                fn(slots, claims, entries, amounts, shard_lo=lo,
+                   n_shards=n_shards)
+
+        def counts_of(tables, keys):
+            slots = (tables[0][0] if len(tables) == 1
+                     else [g for g, _ in tables])
+            return hk.as_u32(hk.hash_lookup(slots, keys)).tolist()
+
+        for case, (keys, start, entries, want, batch_first) in cases.items():
+            start_tables = fresh()
+            insert(start_tables, keys, u32s(start))
+            if batch_first:  # the master holds the batch's keys too
+                insert(start_tables, kmers)
+            plain = [(g.clone(), c.clone()) for g, c in start_tables]
+            insert(plain, entries, fn=hk.insert_plain)
+            torch.cuda.synchronize()
+            require(counts_of(plain, keys) == want,
+                    f"insert_plain: the band's counts {counts_of(plain, keys)}"
+                    f" are not the JAX values {want} ({case}, {layout})")
+            kern = [(g.clone(), c.clone()) for g, c in start_tables]
+            what = (f"the band's {case} into {layout} of {HASH_CAP} slots")
+            for rep in range(BAND_REPS):
+                for (g, c), (g0, c0) in zip(kern, start_tables):
+                    g.copy_(g0)
+                    c.copy_(c0)
+                before = hk.hash_insert.launches
+                insert(kern, entries)
+                record["band_launches"] += hk.hash_insert.launches - before
+                launches += len(groups)
+                torch.cuda.synchronize()
+                got = counts_of(kern, keys)
+                require(got == want, f"hash_insert: the band's counts {got} "
+                        f"are not the JAX values {want} on launch {rep} of "
+                        f"{what}")
+                for d, (g, w) in enumerate(zip(kern, plain)):
+                    err, _ = same_rows(torch, "hash_insert", g, w,
+                                       f"{what}, launch {rep}, group {d}")
+                    record["band_max_abs_err"] = max(
+                        record["band_max_abs_err"], err)
+            print(f"hash_insert: exact on {what}: {BAND_REPS} launches from "
+                  f"one start, each equal to insert_plain and the band keys "
+                  f"at the JAX values {[hex(c) for c in want]} on {card}",
+                  flush=True)
+            del start_tables, plain, kern
+            torch.cuda.empty_cache()
+    require(record["band_launches"] == launches,
+            f"hash_insert: {record['band_launches']} launches for the band's "
+            f"{launches} group inserts")
+    del src, batch
+    torch.cuda.empty_cache()
+    return record
+
+
+def ingest_codes(np):
+    """The first INGEST_READS cnidaria reads through the port's native
+    loader, as uint8 codes [INGEST_READS, READ_LEN]."""
+    from sharkmer_tpu_torch.io import native
+
+    require(native.available(), "the native FASTQ loader did not build")
+    with native.NativeFastqReader(FASTQ) as reader:
+        codes, lens = reader.read_batch(INGEST_READS)
+    require(codes.shape[0] == INGEST_READS and (lens == READ_LEN).all(),
+            f"phase 27: {codes.shape[0]} reads of lengths "
+            f"{sorted(set(lens.tolist()))}, not {INGEST_READS} of {READ_LEN}")
+    return np.ascontiguousarray(codes[:, :READ_LEN])
+
+
+def ingest_steps_phase(ctx, np, card: str, runs: dict, placements) -> dict:
+    """Phase 27: the fused sharded ingest steps (the JAX package's
+    ``make_ingest_step`` and ``make_sorted_ingest_step``, its multi-chip
+    "training step": data-parallel encode, keyspace-sharded insert,
+    summed spectrum) on the first INGEST_READS cnidaria reads, in steps
+    of INGEST_STEP_READS reads a shard over INGEST_SHARDS shards, on each
+    placement (a device list, one shard group a device): the hash step
+    on a ``ShardedKmerTable`` of INGEST_CAP slots a shard, the sorted
+    step at ``cap`` INGEST_CAP a shard. Each is held to
+    ``chunk_spectra_reference`` on the same reads (one chunk): the last
+    step's histogram to its spectrum, the exported table (every shard's
+    rows, sorted) to its distinct keys and counts, after no shard passed
+    INGEST_LOAD of its slots (hash) or holds ``cap`` keys (sorted: the
+    step cuts there). ``hash_insert`` must launch once a group a step,
+    ``run_starts`` once a shard a step, and no kernel of the other
+    backend. Prints each step's wall and each card's peak; the runs'
+    launches go into ``runs`` (``ingest_<tag>_<backend>``)."""
+    from sharkmer_tpu_torch.kernels.hash import slot_keys
+    from sharkmer_tpu_torch.parallel.sharded_table import (ShardedKmerTable,
+                                                          make_ingest_step)
+    from sharkmer_tpu_torch.parallel.sorted_sharded import (
+        ShardedSortedStore, make_sorted_ingest_step)
+
+    torch, kernels = ctx.torch, ctx.kernels
+    S, R = INGEST_SHARDS, INGEST_STEP_READS
+    n_steps = INGEST_READS // (S * R)
+    start = time.monotonic()
+    codes = ingest_codes(np)
+    first = torch.device(next(iter(placements.values()))[0])
+    spectra, n_kmers, (ref_keys, ref_counts) = chunk_spectra_reference(
+        FASTQ, INGEST_READS, 1, K, HISTO_MAX, first, with_rows=True)
+    print(f"phase 27: {INGEST_READS} reads' codes and the reference "
+          f"({n_kmers} k-mers, {ref_keys.numel()} distinct) in "
+          f"{time.monotonic() - start:.2f} s", flush=True)
+    record = {}
+    for tag, devices in placements.items():
+        devices = [torch.device(d) for d in devices]
+        groups = len(devices)
+        for backend in ("hash", "sorted"):
+            label = f"ingest_{tag}_{backend}"
+            cards = sorted({d.index for d in devices if d.type == "cuda"})
+            for index in cards:
+                torch.cuda.reset_peak_memory_stats(index)
+            if backend == "hash":
+                store = ShardedKmerTable.create(K, S, INGEST_CAP,
+                                                devices=devices)
+                step = make_ingest_step(devices, K, HISTO_MAX)
+                state = (store.group_slots, store.group_claims)
+            else:
+                store = ShardedSortedStore.create(K, S, INGEST_CAP,
+                                                  devices=devices)
+                step = make_sorted_ingest_step(devices, K, HISTO_MAX,
+                                               INGEST_CAP)
+                state = (store.kmers, store.counts)
+            for fn in kernels.values():
+                fn.launches = 0
+            walls = []
+            for i in range(n_steps):
+                batch = codes[i * S * R:(i + 1) * S * R].reshape(S, R, -1)
+                t0 = time.monotonic()
+                *state, histo = step(*state, batch)
+                for index in cards:
+                    torch.cuda.synchronize(index)
+                walls.append(time.monotonic() - t0)
+            counts = {name: fn.launches for name, fn in kernels.items()}
+            peaks = [torch.cuda.max_memory_allocated(i) for i in cards]
+            require(np.array_equal(histo, spectra[-1]),
+                    f"{label}: the last step's histogram differs from the "
+                    f"reference's spectrum in bins "
+                    f"{np.nonzero(histo != spectra[-1])[0][:10].tolist()}")
+            keys, counts_, shard_keys = [], [], []
+            if backend == "hash":
+                for g in state[0]:
+                    for j in range(g.shape[0]):
+                        k_, c_ = table_rows(torch, g[j])
+                        shard_keys.append(k_.numel())
+                        keys.append(k_.to(first))
+                        counts_.append(c_.to(first))
+                claimed = [int(c) for g in state[1] for c in g]
+                require(claimed == shard_keys,
+                        f"{label}: claim counters {claimed} for shards of "
+                        f"{shard_keys} keys")
+                require(max(shard_keys) <= INGEST_LOAD * INGEST_CAP,
+                        f"{label}: a shard holds {max(shard_keys)} keys, past "
+                        f"{INGEST_LOAD} of {INGEST_CAP} slots")
+                want_launches = {"hash_insert": groups * n_steps}
+            else:
+                for mk, mc in zip(*state):
+                    live = mk != INT64_MAX
+                    shard_keys.append(int(live.sum()))
+                    keys.append(mk[live].to(first))
+                    counts_.append(mc[live].to(first))
+                require(max(shard_keys) < INGEST_CAP,
+                        f"{label}: a shard holds {max(shard_keys)} keys, "
+                        f"cap {INGEST_CAP} (the step cuts there)")
+                want_launches = {"run_starts": S * n_steps}
+            keys, order = torch.sort(torch.cat(keys))
+            counts_ = torch.cat(counts_)[order]
+            require(torch.equal(keys, ref_keys)
+                    and torch.equal(counts_, ref_counts),
+                    f"{label}: the table's {keys.numel()} keys and counts "
+                    f"differ from the reference's {ref_keys.numel()}")
+            for name, n in counts.items():
+                want = want_launches.get(name, 0)
+                require(n == want, f"{label}: {name} launched {n} times, "
+                        f"not {want} ({groups} groups, {S} shards, "
+                        f"{n_steps} steps)")
+            print(f"{label}: {n_steps} steps of [{S}, {R}, {READ_LEN}] codes "
+                  f"on {','.join(map(str, devices))}: step walls "
+                  f"{[round(w, 4) for w in walls]} s; histogram and "
+                  f"{keys.numel()} keys and counts equal to the reference; "
+                  f"keys a shard {shard_keys}; launches {counts}; each "
+                  f"card's torch.cuda.max_memory_allocated() {peaks} bytes "
+                  f"on {card}", flush=True)
+            runs[label] = ({**counts, "steps": n_steps}, walls)
+            record[label] = {"step_s": walls, "peaks": peaks,
+                             "shard_keys": shard_keys}
+            del store, state, step, keys, counts_
+            torch.cuda.empty_cache()
+    del ref_keys, ref_counts, codes
+    torch.cuda.empty_cache()
+    return record
+
+
+def ingest_phase_of_cards(ctx, np, card: str, runs: dict) -> dict:
+    """Phase 27 on ``[cuda:0]``, on ONE_CARD_GROUPS and, with
+    INGEST_SHARDS cards or more, a group a card."""
+    placements = {"one": ["cuda:0"], "groups": ONE_CARD_GROUPS}
+    n_cards = ctx.torch.cuda.device_count()
+    if n_cards >= INGEST_SHARDS:
+        placements["cards"] = [f"cuda:{i}" for i in range(INGEST_SHARDS)]
+    record = ingest_steps_phase(ctx, np, card, runs, placements)
+    if "cards" not in placements:
+        print(f"phase 27: the {INGEST_SHARDS}-card placement did not run: "
+              f"{n_cards} card(s) visible", flush=True)
+    return record
 
 
 def peer_latency(torch, launch, other) -> float:
@@ -3775,6 +4097,14 @@ def profile_phase() -> None:
             f"vs the committed 8M cell's {want}")
     print(f"ingest_phase --fastq: reads, bases and k-mers {got} equal the "
           f"committed 8M cell's", flush=True)
+    inflated = fastq["inflate"]
+    require(inflated is not None
+            and inflated["inflated_lines"] >= 4 * n_reads,
+            f"ingest_phase --fastq: zlib's inflate alone gave {inflated}")
+    print(f"ingest_phase --fastq: read_batch alone {fastq['read_batch_s']:.3f}"
+          f" s, zlib's inflate alone {inflated['inflate_s']:.3f} s "
+          f"({inflated['gzip_bytes']} gzip bytes to "
+          f"{inflated['inflated_bytes']}) on the card's host", flush=True)
 
     run_tool("cold_start", timeout=300)
     sample = f"synthetic-seed0_{M}"
@@ -3856,16 +4186,16 @@ def main() -> int:
     require(args in ([], ["--closure-times"], ["--chunked"],
                      ["--chunked-cards"], ["--long-k"], ["--entries"],
                      ["--panels"], ["--waves"], ["--options"],
-                     ["--profiles"]),
+                     ["--profiles"], ["--ingest"]),
             f"unknown arguments {args}: none, --closure-times, --chunked, "
             f"--chunked-cards, --long-k, --entries, --panels, --waves, "
-            f"--options or --profiles")
+            f"--options, --profiles or --ingest")
     # the options that run one phase after phases 1 and 2 (and, for
     # --entries, phase 4's run, its ingest wall the one to compare with)
     chunked_only = args in (["--chunked"], ["--chunked-cards"])
     alone = chunked_only or args in (["--long-k"], ["--entries"],
                                      ["--panels"], ["--options"],
-                                     ["--profiles"])
+                                     ["--profiles"], ["--ingest"])
     # the panels whose FASTQ phase 1 starts: each option's; the whole
     # script's grid panels (phase 25's start after phase 3, so that
     # phases 2 and 3, the builds, the timed kernels and their profiler
@@ -3980,6 +4310,9 @@ def main() -> int:
                       "the 8M FASTQ, cold_start bare and --cli on the 1M "
                       "cell (alone: --profiles)")
                 profile_phase()
+            elif args == ["--ingest"]:
+                phase("27. the fused sharded ingest steps (alone: --ingest)")
+                ingest_phase_of_cards(ctx, np, card, runs)
             else:
                 phase("4. main path: 1M reads, cnidaria panel (for --entries)")
                 runs["default"] = drive_main_path(ctx, "default", M)
@@ -4185,6 +4518,13 @@ def main() -> int:
               f"--min-kmer-count 4 --dump-graph, --table-capacity 2^17 and "
               f"the graph-walk limits against their JAX oracles")
         record["options"] = options_phase(ctx, np, runs, card)
+
+        phase(f"27. the fused sharded ingest steps on {INGEST_READS} reads: "
+              f"make_ingest_step and make_sorted_ingest_step, "
+              f"{INGEST_SHARDS} shards of {INGEST_CAP}, on one card, "
+              f"{INGEST_SHARDS} groups on it, and {INGEST_SHARDS} cards "
+              f"where there are")
+        record["ingest"] = ingest_phase_of_cards(ctx, np, card, runs)
     finally:
         for child in synth.values():
             child.kill()
@@ -4305,6 +4645,12 @@ def main() -> int:
         if name == "hash_lookup":
             # numpy to numpy on each --mirror device run's table
             rec["waves"] = waves
+        # phase 27: the fused ingest steps' walls on each placement
+        backend = {"hash_insert": "hash", "run_starts": "sorted"}.get(name)
+        if backend:
+            rec["ingest_steps"] = {
+                label: value for label, value in record["ingest"].items()
+                if label.endswith(f"_{backend}")}
         # phases 23 and 26: the kernel at k=31, 25 and 27
         # (k<k>_[call_]<field>)
         for k, long_k in ((LONG_K, record["k31"]),

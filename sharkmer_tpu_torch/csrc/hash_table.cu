@@ -3,9 +3,11 @@
 //
 // The table is one array of 16 B slots, `cap` of them a table (a power of
 // two): the int64 key at byte 0 (INT64_MAX, the port's SENTINEL, for an empty
-// slot), the uint32 count at byte 8, and 4 B of zero padding. A sharded table
-// is S such tables, in one [S, cap] allocation or in groups of them, and each
-// key lives in the shard owner(key, S) (mix64.cuh: the high bits of mix64).
+// slot), the uint32 count at byte 8, and a 4 B pad word at byte 12: the
+// epoch of the last insert that added to the slot (below), 0 in an empty
+// slot, never part of a count. A sharded table is S such tables, in one
+// [S, cap] allocation or in groups of them, and each key lives in the shard
+// owner(key, S) (mix64.cuh: the high bits of mix64).
 // A key's home slot is mix64(key) & (cap - 1) in its shard, the SplitMix64
 // finalizer's low bits; collisions probe linearly. A slot goes from empty to
 // a key once and never changes again.
@@ -57,19 +59,33 @@
 // is its slot in the source (within its probe run) plus a multiple of cap_s.
 //
 // hash_insert, per entry: load the slot; if it holds the entry's key, add
-// (unless the loaded count is at or above SAT_THRESHOLD, 0xE0000000: the JAX
-// table's freeze, read per entry where JAX reads it per round; the two agree
-// unless one batch carries a count across the threshold, ~3.76e9 adds); if it
-// is empty, claim it with one 16 B compare-and-swap of the whole slot, the
-// key and the amount as its count (atom.global.cas.b128, sm_90; an empty
-// slot's count and pad words are 0): a thread that finds its own key there
+// under the freeze rule below; if it is empty, claim it with one 16 B
+// compare-and-swap of the whole slot: the key, the amount as its count and
+// the launch's epoch as its pad (atom.global.cas.b128, sm_90; an empty
+// slot's count and pad words are 0). A thread that finds its own key there
 // adds as on a hit, one that finds another key steps to the next slot. One
-// atomic a new key, where a CAS of the key word and then an add took two; a
-// hit is a load and one add. All entries of one key follow the same probe
-// sequence and find the same slot, whatever order they run in. The add is a
-// 32-bit atomicAdd, modulo 2^32 as JAX's u32 scatter-add. Probes are capped
-// at `cap`; a thread that runs out sets *overflow, and the wrapper raises on
-// it (the growth rule keeps the load at 0.7). Hot keys still serialise their
+// atomic a new key, where a CAS of the key word and then an add took two.
+// All entries of one key follow the same probe sequence and find the same
+// slot, whatever order they run in. Probes are capped at `cap`; a thread
+// that runs out sets *overflow, and the wrapper raises on it (the growth
+// rule keeps the load at 0.7).
+//
+// The freeze is the JAX table's: it reads `count >= SAT_THRESHOLD`
+// (0xE0000000) once a claim/probe round, and all entries of a key land in
+// the same round, so a batch computes new = old + (old < T ? the batch's
+// sum for the key : 0), modulo 2^32 as its u32 scatter-add. A thread
+// cannot see `old` once other entries of its key have added, so the
+// batch's first add marks the slot: a launch gets a nonzero epoch that no
+// earlier launch had (kernels/hash.py; a batch split over groups writes each
+// slot from one launch only), and an add decides on the
+// 8 B count word (count and pad) it loaded with the slot. A pad equal to
+// the epoch means an entry of this batch has added, which it did only
+// below T: add, a 32-bit atomicAdd (a hit is then a load and one add). A
+// stale pad means the count is still `old`: at or above T it is frozen and
+// nothing is added; below T one 64-bit compare-and-swap writes old +
+// amount and the epoch at once, and on a race retries with the word it
+// found. A key that was in the table before the batch pays one CAS; the
+// result is the same on every launch. Hot keys still serialise their
 // atomicAdds on one address, and a batch in the reads' order sends a warp's
 // 32 loads to 32 unrelated sectors: a partition of the batch into home
 // windows, with each key's amounts summed in shared memory before one
@@ -159,10 +175,26 @@ __device__ __forceinline__ void load_slot_nc(const u64* p, u64& key,
       : "l"(p));
 }
 
-__device__ __forceinline__ void add_count(u64* p, unsigned int count,
-                                          unsigned int amount) {
-  if (amount != 0u && count < kSat) {
-    atomicAdd(reinterpret_cast<unsigned int*>(p + 1), amount);
+// Add `amount` to slot p's count under the freeze rule, from `word`, the
+// slot's count word (the u32 count, the pad above it) as this thread loaded
+// it: a pad of this batch's `epoch` adds; a stale pad skips a frozen count
+// and swaps old + amount and the epoch into a live one.
+__device__ __forceinline__ void add_count(u64* p, u64 word,
+                                          unsigned int amount,
+                                          unsigned int epoch) {
+  if (amount == 0u) return;
+  for (;;) {
+    const unsigned int count = static_cast<unsigned int>(word);
+    if (static_cast<unsigned int>(word >> 32) == epoch) {
+      atomicAdd(reinterpret_cast<unsigned int*>(p + 1), amount);
+      return;
+    }
+    if (count >= kSat) return;  // frozen before this batch
+    const u64 marked =
+        (static_cast<u64>(epoch) << 32) | static_cast<u64>(count + amount);
+    const u64 seen = atomicCAS(p + 1, word, marked);
+    if (seen == word) return;
+    word = seen;
   }
 }
 
@@ -171,12 +203,13 @@ __device__ __forceinline__ int shard_of(u64 h, int n_shards) {
   return n_shards > 1 ? shk::owner_of_hash(h, n_shards) : 0;
 }
 
-// Claim the empty slot p for `key` with `amount` as its count, key and count
-// in one 16 B compare-and-swap (sm_90; an empty slot's count and pad words
-// are 0): true when this thread claimed it; else `prev` holds the key found
-// there, and when that is `key`, the amount is added as on a hit.
+// Claim the empty slot p for `key` with `amount` as its count and `epoch`
+// as its pad, in one 16 B compare-and-swap (sm_90; an empty slot's count
+// and pad words are 0): true when this thread claimed it; else `prev` holds
+// the key found there, and when that is `key`, the amount is added as on a
+// hit.
 __device__ __forceinline__ bool claim(u64* p, u64 key, unsigned int amount,
-                                      u64& prev) {
+                                      unsigned int epoch, u64& prev) {
   u64 word;
   asm volatile(
       "{\n\t.reg .b128 d, b, c;\n\t"
@@ -185,11 +218,12 @@ __device__ __forceinline__ bool claim(u64* p, u64 key, unsigned int amount,
       "atom.global.cas.b128 d, [%6], b, c;\n\t"
       "mov.b128 {%0, %1}, d;\n\t}"
       : "=l"(prev), "=l"(word)
-      : "l"(kEmpty), "l"(0ull), "l"(key), "l"(static_cast<u64>(amount)),
+      : "l"(kEmpty), "l"(0ull), "l"(key),
+        "l"((static_cast<u64>(epoch) << 32) | static_cast<u64>(amount)),
         "l"(p)
       : "memory");
   if (prev == kEmpty) return true;
-  if (prev == key) add_count(p, static_cast<unsigned int>(word), amount);
+  if (prev == key) add_count(p, word, amount, epoch);
   return false;
 }
 
@@ -198,6 +232,7 @@ __device__ __forceinline__ bool claim(u64* p, u64 key, unsigned int amount,
 __device__ __forceinline__ bool insert_one(u64* table, u64 mask, int64_t cap,
                                            u64 h, u64 key,
                                            unsigned int amount,
+                                           unsigned int epoch,
                                            int* overflow) {
   u64 slot = h & mask;
   for (int64_t probes = 0;; ++probes) {
@@ -209,12 +244,12 @@ __device__ __forceinline__ bool insert_one(u64* table, u64 mask, int64_t cap,
     u64 cur, word;
     load_slot(p, cur, word);
     if (cur == key) {
-      add_count(p, static_cast<unsigned int>(word), amount);
+      add_count(p, word, amount, epoch);
       return false;
     }
     if (cur == kEmpty) {
       u64 prev;
-      if (claim(p, key, amount, prev)) return true;
+      if (claim(p, key, amount, epoch, prev)) return true;
       if (prev == key) return false;
     }
     slot = (slot + 1) & mask;
@@ -227,7 +262,7 @@ hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_local,
                    const u64* __restrict__ kmers,
                    const unsigned int* __restrict__ amounts,
                    const u64* __restrict__ src, int64_t n,
-                   int* __restrict__ overflow) {
+                   unsigned int epoch, int* __restrict__ overflow) {
   extern __shared__ u64 block_claims[];  // [n_local]
   for (int s = threadIdx.x; s < n_local; s += kThreads) block_claims[s] = 0;
   __syncthreads();
@@ -248,7 +283,7 @@ hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_local,
       if (src != nullptr) {  // another table's slot: key and count at once
         u64 word;
         load_slot_nc(src + 2 * i, key, word);
-        amount = static_cast<unsigned int>(word);
+        amount = static_cast<unsigned int>(word);  // not the source's pad
       } else {
         key = kmers[i];
         amount = amounts == nullptr ? 1u : amounts[i];
@@ -259,7 +294,8 @@ hash_insert_kernel(u64* __restrict__ slots, int64_t cap, int n_local,
         // the window: an entry another group owns is that group's
         if (local >= 0 && local < n_local) {
           claimed = insert_one(slots + 2 * static_cast<u64>(local) * cap,
-                               mask, cap, h, key, amount, overflow);
+                               mask, cap, h, key, amount, epoch,
+                               overflow);
         }
       }
     }
@@ -334,19 +370,22 @@ extern "C" {
 // here. Entries: either kmers [n] int64 (SENTINEL skipped) with amounts [n]
 // uint32 or NULL (each entry adds 1), or src [n, 2] int64, another table's
 // slots (kmers and amounts NULL; empty slots skipped). Entries owned by a
-// shard outside the window are skipped. overflow: one int, set to 1 when an
+// shard outside the window are skipped. epoch: the launch's, nonzero and
+// never one an earlier launch wrote into these slots (the freeze rule; 0 is
+// refused). overflow: one int, set to 1 when an
 // entry found no slot in `cap` probes.
 int shk_hash_insert(int64_t* slots, int64_t cap, int n_local, int shard_lo,
                     int n_shards, int64_t* claims, const int64_t* kmers,
                     const int* amounts, const int64_t* src, int64_t n,
-                    int* overflow, cudaStream_t stream) {
+                    unsigned int epoch, int* overflow, cudaStream_t stream) {
+  if (epoch == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   hash_insert_kernel<<<blocks_for(n), kThreads, n_local * sizeof(u64),
                        stream>>>(
       reinterpret_cast<u64*>(slots), cap, n_local, shard_lo, n_shards,
       reinterpret_cast<u64*>(claims), reinterpret_cast<const u64*>(kmers),
       reinterpret_cast<const unsigned int*>(amounts),
-      reinterpret_cast<const u64*>(src), n, overflow);
+      reinterpret_cast<const u64*>(src), n, epoch, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 

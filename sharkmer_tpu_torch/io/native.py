@@ -1,9 +1,10 @@
-"""ctypes bindings for the native C++ FASTQ loader (native/sharkio.cpp).
+"""ctypes bindings for the native C++ FASTQ loader (csrc/sharkio.cpp).
 
 Builds the shared library on first use (g++ -O3, linked against zlib)
-from the source in ``native/`` into the port's build directory
-(``build/torch_kernels/``, beside the CUDA kernels), leaving
-``native/`` untouched. When the toolchain or zlib is
+from the port's own copy of the loader, ``csrc/sharkio.cpp`` (the JAX
+package's loader source but for the comment that names its binding),
+into the port's build directory (``build/torch_kernels/``,
+beside the CUDA kernels). When the toolchain or zlib is
 missing the import still succeeds and ``available()`` returns False —
 callers fall back to the pure-python reader, which is also the
 permanent differential-test oracle for this loader.
@@ -20,15 +21,11 @@ import threading
 
 import numpy as np
 
-from ..kernels.build import BUILD_DIR
+from ..kernels.build import BUILD_DIR, CSRC_DIR
 
 log = logging.getLogger("sharkmer")
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_SRC = os.path.join(_NATIVE_DIR, "sharkio.cpp")
+_SRC = os.path.join(CSRC_DIR, "sharkio.cpp")
 _LIB = os.path.join(BUILD_DIR, "libsharkio.so")
 
 _lock = threading.Lock()

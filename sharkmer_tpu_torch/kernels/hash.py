@@ -14,13 +14,17 @@ for one table, ``[S, cap, 2]`` for S owner shards (``cap`` a power of
 two); shards placed on several devices are groups ``[n_d, cap, 2]`` of
 contiguous shards, one a device (``parallel/sharded_table.py``). A slot
 holds the int64 key at byte 0 (``SENTINEL``, INT64_MAX, when
-empty), the u32 count at byte 8 and 4 B of zeros; ``slot_keys`` and
-``slot_counts`` are the int64 key view and the int32 count view (the
+empty), the u32 count at byte 8 and a 4 B pad word at byte 12 (0 in an
+empty slot; the kernel keeps an insert's epoch there, the plain version
+leaves it 0, and no reader takes it for part of a count); ``slot_keys``
+and ``slot_counts`` are the int64 key view and the int32 count view (the
 u32's bit pattern), each with a 16 B stride. A key lives in shard
 ``owner(key, S)``, the high bits of the SplitMix64 hash; its home slot
 there is ``mix64(key) & (cap - 1)``, the low bits; collisions probe
-linearly. Counts add modulo 2^32, and a count at or above
-``SAT_THRESHOLD`` takes no further add (the JAX table's freeze rule).
+linearly. Counts add modulo 2^32 under the JAX table's freeze rule,
+read once a key a batch: a batch adds its sum for a key to a count that
+was below ``SAT_THRESHOLD`` before the batch, and nothing to one at or
+above it.
 An insert also counts the slots it claims into ``claims`` (int64, one
 per shard), so a table's occupancy is read without a sweep. An insert
 into one group of shards takes the group's window ``(shard_lo,
@@ -35,11 +39,20 @@ JAX probe loop. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/hash_table.cu`` on the current stream, or raises; a sharded call
 is one launch (an insert into groups: one a group). The insert kernel
 runs a thread an entry: a hit is one load and one add, a claim one 16 B
-compare-and-swap that writes the key and its count together.
+compare-and-swap that writes the key, its count and the batch's epoch
+together. The epoch (``new_epoch``: nonzero, never repeated in a
+process) is how the kernel reads the freeze once a batch: the first add
+of a batch to a key that was in the table before it is a 64-bit
+compare-and-swap that writes the count and the epoch at once, and the
+later ones see the epoch and add. Each launch draws its own epoch: a
+batch split over groups writes each slot from one launch only (a group
+takes just the keys its window owns), so no slot meets two epochs of one
+batch.
 ``<wrapper>.launches`` counts the wrapper's kernel launches. The
 kernel's claims race, so its slot layout may differ from the plain
 version's; the table's contents (each key and its count) and
-its claim counts do not.
+its claim counts do not; neither does the count of any key, on any
+launch.
 
 ``LookupWaves`` is the lookup as the sPCR graph extension issues it, a
 wave at a time from several gene threads: numpy uint64 queries in,
@@ -83,6 +96,13 @@ _M1 = 0xFF51_AFD7_ED55_8CCD - (1 << 64)
 _M2 = 0xC4CE_B9FE_1A85_EC53 - (1 << 64)
 _LOW31 = (1 << 31) - 1
 _LOW24 = (1 << 24) - 1
+_epochs = itertools.count(1)
+
+
+def new_epoch() -> int:
+    """A batch's epoch for ``hash_insert``: in [1, 2^32), a new one each
+    call (2^32 - 1 batches a process before one repeats)."""
+    return (next(_epochs) - 1) % U32 + 1
 
 
 def mix64(x: torch.Tensor) -> torch.Tensor:
@@ -298,7 +318,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_shk_bound", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.shk_hash_insert.argtypes = [p, i64, i32, i32, i32, p, p, p, p,
-                                        i64, p, p]
+                                        i64, ctypes.c_uint32, p, p]
         lib.shk_hash_insert.restype = ctypes.c_int
         lib.shk_hash_lookup.argtypes = [p, p, i64, i32, p, i64, i32, p, p]
         lib.shk_hash_lookup.restype = ctypes.c_int
@@ -400,7 +420,7 @@ def hash_insert(slots, claims, kmers, amounts=None, shard_lo: int = 0,
         rc = lib.shk_hash_insert(
             slots.data_ptr(), cap, n_local, shard_lo, n_shards,
             claims.data_ptr(), ptr(kmers), ptr(amounts), ptr(src), n,
-            overflow.data_ptr(), stream)
+            new_epoch(), overflow.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hash_insert: CUDA launch failed (cudaError {rc})")
     hash_insert.launches += 1

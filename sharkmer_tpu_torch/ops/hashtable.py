@@ -8,16 +8,20 @@ probed by the ``hash_insert`` and ``hash_lookup`` kernels
 * ``slots``: int64 ``[capacity, 2]``. A slot holds the key (int64,
   ``ops/keys.py``; ``SENTINEL``, INT64_MAX, the device form of
   ``EMPTY``, for an empty slot) at byte 0, the bit pattern of the JAX
-  table's uint32 count at byte 8 and 4 B of zeros: 16 B a slot, one
-  sector access for a key and its count.
+  table's uint32 count at byte 8 and a 4 B pad word (the kernel's
+  epoch of the last batch that added; no reader takes it for part of a
+  count): 16 B a slot, one sector access for a key and its count.
 * ``keys`` and ``counts`` are views of the slots (int64 and int32, 16 B
   strides), so every reader sees the two arrays of the JAX table. An
-  add is modulo 2^32, and a count at or above ``SAT_THRESHOLD``
-  (0xE0000000) takes no further add: after 0xE0000000 and then 5 the
-  count stays 0xE0000000 (a freeze, not a clamp;
-  ``kernels.hash.SAT_THRESHOLD``). Histograms, sums, compares and the
-  numpy boundary widen the counts with ``& 0xFFFFFFFF`` to int64
-  (``kernels.hash.as_u32``).
+  add is modulo 2^32, and the freeze is read once a key a batch, as the
+  JAX table reads it: a batch adds its sum for a key to a count that
+  was below ``SAT_THRESHOLD`` (0xE0000000) before the batch, and
+  nothing to one at or above it. From 0xE0000000 - 2, a batch of five
+  entries of the key gives 0xE0000003, and the next batch adds nothing
+  (a freeze, not a clamp; ``kernels.hash.SAT_THRESHOLD``; the kernel's
+  epoch in the pad word, ``kernels/hash.py``). Histograms, sums,
+  compares and the numpy boundary widen the counts with ``&
+  0xFFFFFFFF`` to int64 (``kernels.hash.as_u32``).
 * ``claims``: int64 ``[1]``, the slots the inserts claimed: the
   occupancy, read by ``n_unique`` without a sweep of the table.
 * ``lookup`` and ``lookup_directional`` run a wave of numpy queries

@@ -74,7 +74,7 @@ def variants(torch, np, cs, card: str) -> dict:
         rc = lib.shk_hash_insert(
             table[0].data_ptr(), cap, 1, 0, 1, table[1].data_ptr(),
             k.data_ptr(), None if a is None else a.data_ptr(), None,
-            k.numel(), flag.data_ptr(), stream)
+            k.numel(), hk.new_epoch(), flag.data_ptr(), stream)
         cs.require(rc == 0, f"shk_hash_insert: launch failed ({rc})")
 
     class Record(dict):

@@ -31,7 +31,11 @@ stages over that file (the port's modules as the CLI calls them; none
 is changed):
 
 (a) ``io/native.NativeFastqReader.read_batch`` alone at the CLI's 2^17
-    reads a batch: gzip inflate and parse (``native/sharkio.cpp``);
+    reads a batch: gzip inflate and parse (``csrc/sharkio.cpp``);
+(a') zlib's inflate alone, in C (``gzread`` of the zlib the loader
+    links into one fixed 1 MB buffer, every gzip member) until the reads
+    of (a) are out: the least that (a) can take with that inflate, parse
+    left out;
 (b) ``PrefetchingBatches`` (depth 3) with a consumer that does nothing:
     whether one producer thread alone sets the pace;
 (c) the consumer's host count of valid bases, ``np.sum(codes <
@@ -43,7 +47,8 @@ is changed):
     the batches already on the device.
 
 Its last line but one names the larger of the producer (a) and the
-consumer (c + d + e) as the stage that sets the ingest wall; the last
+consumer (c + d + e) as the stage that sets the ingest wall, with (a)
+over (a'); the last
 line is one JSON object of every number. Runs on the card unless
 ``SHARKMER_TORCH_DEVICE=cpu``:
 
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -194,6 +200,55 @@ def _stage(label: str, fn, iters: int, device, fresh=None) -> dict:
     return {"ms": ms, "launches": launches, "calls": iters + 1}
 
 
+def inflate_alone(path: str, max_reads: int) -> dict:
+    """Stage (a'): the inflate alone, in C, through the zlib that the
+    native loader links (``libz.so.1``): ``gzopen`` with the loader's 1 MB
+    ``gzbuffer``, then ``gzread`` into one fixed 1 MB buffer, member after
+    member, until ``4 * max_reads`` lines are out (the whole stream with
+    0). ``inflate_s`` sums the ``gzread`` calls alone (the newline count
+    is outside it); also the gzip bytes
+    consumed, the bytes inflated and the lines (newlines) seen. A file
+    that is not gzip is not measured (None)."""
+    import ctypes
+
+    with open(path, "rb") as f:
+        if f.read(2) != b"\x1f\x8b":
+            return None
+    z = ctypes.CDLL("libz.so.1")
+    z.gzopen.restype, z.gzopen.argtypes = ctypes.c_void_p, [
+        ctypes.c_char_p, ctypes.c_char_p]
+    z.gzbuffer.argtypes = [ctypes.c_void_p, ctypes.c_uint]
+    z.gzread.restype, z.gzread.argtypes = ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint]
+    z.gzoffset64.restype, z.gzoffset64.argtypes = ctypes.c_int64, [
+        ctypes.c_void_p]
+    z.gzclose.argtypes = [ctypes.c_void_p]
+    block = np.empty(1 << 20, np.uint8)
+    want = 4 * max_reads if max_reads > 0 else None
+    gz = z.gzopen(os.fsencode(path), b"rb")
+    if not gz:
+        raise OSError(f"inflate_alone: gzopen failed on {path}")
+    z.gzbuffer(gz, 1 << 20)
+    n_out = lines = 0
+    inflate_s = 0.0
+    try:
+        while want is None or lines < want:
+            t0 = time.perf_counter()
+            got = z.gzread(gz, block.ctypes.data, block.size)
+            inflate_s += time.perf_counter() - t0
+            if got < 0:
+                raise OSError(f"inflate_alone: gzread failed on {path}")
+            if got == 0:
+                break
+            n_out += got
+            lines += int(np.count_nonzero(block[:got] == 10))
+        n_in = z.gzoffset64(gz)
+    finally:
+        z.gzclose(gz)
+    return {"inflate_s": inflate_s, "gzip_bytes": n_in,
+            "inflated_bytes": n_out, "inflated_lines": lines}
+
+
 def fastq_stages(path: str, max_reads: int, k: int, device) -> dict:
     """The host stages (a)-(e) over the first ``max_reads`` reads of
     ``path`` (all with 0), each printed and recorded in seconds."""
@@ -227,6 +282,16 @@ def fastq_stages(path: str, max_reads: int, k: int, device) -> dict:
     print(f"(a) read_batch alone: {n_reads} reads, {n_bases} bases in "
           f"{len(batches)} batches of {CLI_BATCH_READS}: {read_s:.3f} s",
           flush=True)
+    inflated = inflate_alone(path, n_reads)
+    if inflated is None:
+        print("(a') inflate alone: not measured (not a gzip file)",
+              flush=True)
+    else:
+        print(f"(a') zlib gzread alone: {inflated['gzip_bytes']} gzip "
+              f"bytes to {inflated['inflated_bytes']} bytes, "
+              f"{inflated['inflated_lines']} lines: "
+              f"{inflated['inflate_s']:.3f} s; read_batch (a) takes "
+              f"{read_s / inflated['inflate_s']:.3f}x that", flush=True)
 
     # (b) the producer thread with a consumer that does nothing
     seen = 0
@@ -299,10 +364,13 @@ def fastq_stages(path: str, max_reads: int, k: int, device) -> dict:
 
     consumer_s = count_s + pageable_s + device_s
     setter = "producer (a)" if read_s >= consumer_s else "consumer (c + d + e)"
-    print(f"ingest wall set by the {setter}: producer (a) {read_s:.3f} s vs "
-          f"consumer (c + d + e) {consumer_s:.3f} s", flush=True)
+    inflate_s = None if inflated is None else inflated["inflate_s"]
+    print(f"ingest wall set by the {setter}: producer (a) {read_s:.3f} s "
+          f"(zlib's inflate alone (a') {inflate_s} s) vs consumer (c + d + "
+          f"e) {consumer_s:.3f} s", flush=True)
     return {"reads": n_reads, "bases": n_bases, "valid_bases": valid_bases,
             "kmers": n_kmers, "bytes": n_bytes, "read_batch_s": read_s,
+            "inflate": inflated,
             "prefetch_s": prefetch_s, "valid_count_s": count_s,
             "pageable_upload_s": pageable_s, "pinned_upload_s": pinned_s,
             "pinned_copies_s": staged_s, "device_count_s": device_s,

@@ -436,22 +436,35 @@ def _mix64_int(x: int) -> int:
     return x ^ (x >> 33)
 
 
+U32 = 0xFFFF_FFFF
+
+
 def kernel_model(keys, counts, claims, kmers, amounts, rng,
                  shard_lo: int = 0, n_shards=None):
     """``hash_insert_kernel`` thread by thread, in place, on the
     ``n_local`` shards ``[shard_lo, shard_lo + n_local)`` of an
     ``n_shards``-way owner route (``keys[s]``, ``counts[s]``: Python ints,
-    SENTINEL for an empty key; by default every shard of the route);
-    entries that a shard outside the window owns are skipped. Each step
+    SENTINEL for an empty key, each count the slot's 8 B count word: the
+    u32 count and the pad word above it; by default every shard of the
+    route); entries that a shard outside the window owns are skipped.
+    ``amounts`` may be another table's count words (a rehash or a merge):
+    the amount is the low 32 bits. The call is one launch, with a new
+    epoch from ``new_epoch``. Each step
     is one memory action of one thread: the 16 B load of a slot (key and
-    count at once), the 16 B compare-and-swap that claims an empty slot
-    with the key and the amount as its count (returning the slot as it
-    was), the add; every step runs a thread drawn at random, so the
+    count word at once), the 16 B compare-and-swap that claims an empty
+    slot with the key, the amount as its count and the epoch as its pad
+    (returning the slot as it was), the 8 B compare-and-swap of the count
+    word that makes a batch's first add to a key from before it (count
+    and epoch at once; on a race the thread decides again on the word it
+    found), and the 32-bit add of a later entry, which saw the epoch;
+    a count word with a stale pad and a count at or above SAT_THRESHOLD
+    takes nothing. Every step runs a thread drawn at random, so the
     threads interleave as racing warps may. A thread that claims a slot
     counts it in its block's counter for its shard, and the blocks'
     counters reach ``claims`` when the launch ends."""
     n_local, cap = len(keys), len(keys[0])
     n_shards = n_local if n_shards is None else n_shards
+    epoch = hash_kernels.new_epoch()
     threads = []
     for km, a in zip(kmers, amounts):
         if int(km) == SENTINEL:
@@ -459,7 +472,7 @@ def kernel_model(keys, counts, claims, kmers, amounts, rng,
         h = _mix64_int(int(km))
         local = ((h >> 40) % n_shards if n_shards > 1 else 0) - shard_lo
         if 0 <= local < n_local:
-            threads.append({"key": int(km), "amount": int(a),
+            threads.append({"key": int(km), "amount": int(a) & U32,
                             "shard": local, "slot": h & (cap - 1),
                             "state": "load", "probes": 0, "claimed": False})
     block = [0] * n_local
@@ -469,31 +482,44 @@ def kernel_model(keys, counts, claims, kmers, amounts, rng,
         tk, tc = keys[t["shard"]], counts[t["shard"]]
         slot = t["slot"]
 
-        def freeze_check(count):
-            return "add" if t["amount"] != 0 and count < SAT_THRESHOLD \
-                else "done"
+        def decide(word):
+            """The add's next step from the count word as loaded."""
+            t["word"] = word
+            if t["amount"] == 0:
+                return "done"
+            if word >> 32 == epoch:
+                return "add"
+            return "done" if word & U32 >= SAT_THRESHOLD else "cas"
 
         if t["state"] == "load":
-            cur, count = tk[slot], tc[slot]
+            cur, word = tk[slot], tc[slot]
             if cur == t["key"]:
-                t["state"] = freeze_check(count)
+                t["state"] = decide(word)
             elif cur == SENTINEL:
-                t["state"] = "cas"
+                t["state"] = "claim"
             else:
                 t["slot"], t["probes"] = (slot + 1) & (cap - 1), t["probes"] + 1
-        elif t["state"] == "cas":
-            prev, count = tk[slot], tc[slot]
-            if prev == SENTINEL:  # an empty slot's count is 0
-                tk[slot], tc[slot] = t["key"], t["amount"]
+        elif t["state"] == "claim":
+            prev, word = tk[slot], tc[slot]
+            if prev == SENTINEL:
+                assert word == 0  # an empty slot's count word is 0
+                tk[slot], tc[slot] = t["key"], t["amount"] | epoch << 32
                 t["claimed"] = True
                 t["state"] = "done"
             elif prev == t["key"]:
-                t["state"] = freeze_check(count)
+                t["state"] = decide(word)
             else:
                 t["slot"], t["state"] = (slot + 1) & (cap - 1), "load"
                 t["probes"] += 1
-        else:  # add
-            tc[slot] = (tc[slot] + t["amount"]) & 0xFFFFFFFF
+        elif t["state"] == "cas":
+            if tc[slot] == t["word"]:
+                tc[slot] = ((t["word"] + t["amount"]) & U32) | epoch << 32
+                t["state"] = "done"
+            else:
+                t["state"] = decide(tc[slot])
+        else:  # add: the low 32 bits, the pad untouched
+            word = tc[slot]
+            tc[slot] = (word & ~U32) | ((word + t["amount"]) & U32)
             t["state"] = "done"
         assert t["probes"] < cap, "overflow"
         if t["state"] == "done":
@@ -534,8 +560,7 @@ def test_kernel_protocol_is_order_independent(seed, n_shards):
         j = j.insert_kmers(batch, amounts)
         dev = [SENTINEL if b == EMPTY else int(b) for b in batch]
         kernel_model(keys, counts, claims, dev, amounts.tolist(), rng)
-    got = [{key: c for key, c in zip(ks, cs) if key != SENTINEL}
-           for ks, cs in zip(keys, counts)]
+    got = _contents(keys, counts)
     assert claims == [len(g) for g in got]
     if n_shards == 1:
         want = [j.to_dict()]
@@ -554,7 +579,8 @@ def _model_tables(n_local: int, cap: int):
 
 
 def _contents(keys, counts) -> list[dict]:
-    return [{key: c for key, c in zip(ks, cs) if key != SENTINEL}
+    """Each shard's {key: u32 count}: the count words' low 32 bits."""
+    return [{key: c & U32 for key, c in zip(ks, cs) if key != SENTINEL}
             for ks, cs in zip(keys, counts)]
 
 
@@ -599,45 +625,191 @@ def test_kernel_protocol_in_a_window(seed, layout):
     assert 0 < sum(len(g) for g in got) < j.n_unique()
 
 
+T = SAT_THRESHOLD
+
+
+def _jax_contents(j, n_shards: int) -> list[dict]:
+    """Each shard's {key: count} of a JAX table (one table: one shard)."""
+    if n_shards == 1:
+        return [j.to_dict()]
+    jk, jc = np.asarray(j.keys), np.asarray(j.counts)
+    return [{int(key): int(c) for key, c in zip(jk[s], jc[s])
+             if key != EMPTY} for s in range(n_shards)]
+
+
+def _jax_table(n_shards: int, cap: int, mesh=None):
+    if n_shards == 1:
+        return JaxTable.create(21, cap)
+    return JaxShardedTable.create(21, mesh or make_mesh(n_shards),
+                                  local_capacity=cap)
+
+
+def _port_table(n_shards: int, cap: int):
+    from sharkmer_tpu_torch.parallel.sharded_table import ShardedKmerTable
+
+    if n_shards == 1:
+        return KmerTable.create(21, cap, "cpu")
+    return ShardedKmerTable.create(21, n_shards, local_capacity=cap)
+
+
+def _port_contents(port, n_shards: int) -> list[dict]:
+    """Each shard's {key: u32 count} of a port table (the plain insert)."""
+    shards = [port] if n_shards == 1 else port.shards
+    return [shard.to_dict() for shard in shards]
+
+
 @pytest.mark.parametrize("n_shards", [1, 4])
-def test_kernel_freeze_is_read_per_entry(n_shards):
+def test_kernel_freeze_is_read_once_a_batch(n_shards):
     """One batch carries a key from SAT_THRESHOLD - 2 past the threshold
     (5 entries of it): JAX reads its count once a round and adds the
-    round's sum, SAT_THRESHOLD + 3. The kernel adds once for each entry
-    that read the count below the threshold, SAT_THRESHOLD to
-    SAT_THRESHOLD + 3 by the interleaving (the documented difference of
-    the freeze read, ~3.76e9 adds into one key); every other key equals
-    JAX's."""
+    round's sum, SAT_THRESHOLD + 3. The kernel reads the freeze once a
+    batch (the launch's epoch in the slot's pad word): every one of 20
+    random interleavings gives SAT_THRESHOLD + 3, and every other key
+    equals JAX's."""
     rng = np.random.default_rng(7)
     cap = (1 << 8) // n_shards
     key = 987654321
-    if n_shards == 1:
-        _, j = both(21, cap)
-    else:
-        j = JaxShardedTable.create(21, make_mesh(n_shards),
-                                   local_capacity=cap)
+    j = _jax_table(n_shards, cap)
     others = rng.integers(0, 1 << 42, size=20, dtype=np.uint64)
     batch = np.concatenate([np.full(5, key, np.uint64), others, others[:7]])
     batch = batch[rng.permutation(batch.shape[0])]
     j = j.insert_kmers(np.array([key], np.uint64),
                        np.array([SAT_THRESHOLD - 2], np.uint32))
     j = j.insert_kmers(batch, np.ones(batch.shape[0], np.uint32))
-    if n_shards == 1:
-        want = j.to_dict()
-    else:
-        jk, jc = np.asarray(j.keys), np.asarray(j.counts)
-        want = {int(k): int(c) for k, c in zip(jk.reshape(-1), jc.reshape(-1))
-                if k != EMPTY}
+    want = {k: c for g in _jax_contents(j, n_shards) for k, c in g.items()}
     assert want[key] == SAT_THRESHOLD + 3
-    per_entry = set()
     for _ in range(20):
         keys, counts, claims = _model_tables(n_shards, cap)
         kernel_model(keys, counts, claims, [key], [SAT_THRESHOLD - 2], rng)
         kernel_model(keys, counts, claims, batch.tolist(),
                      [1] * batch.shape[0], rng)
         got = {k: c for g in _contents(keys, counts) for k, c in g.items()}
-        assert {k: c for k, c in got.items() if k != key} == \
-            {k: c for k, c in want.items() if k != key}
-        per_entry.add(got[key])
-    assert per_entry <= set(range(SAT_THRESHOLD, SAT_THRESHOLD + 4))
-    assert per_entry != {SAT_THRESHOLD + 3}
+        assert got == want
+
+
+# a key's count before the batch, the batch's amounts for it, the JAX
+# table's count after (its u32 scatter-add wraps modulo 2^32)
+BAND = {"T-1": (T - 1, [1] * 5, T + 4),
+        "T": (T, [1] * 5, T),
+        "T+5": (T + 5, [1] * 5, T + 5),
+        "wrap": (T - 1, [1 << 29, 1 << 29, 3], (T - 1 + (1 << 30) + 3)
+                 & U32)}
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("case", sorted(BAND))
+def test_freeze_band_matches_jax(case, n_shards):
+    """A key at a count near SAT_THRESHOLD and a batch that carries
+    several entries of it among other keys: the plain insert (the port's
+    table on the CPU), the kernel model under 20 interleavings and the
+    JAX table (one table, or the sharded table on a 4-device mesh) hold
+    the same contents shard for shard, and the key's count is the
+    written JAX value."""
+    start, amounts, after = BAND[case]
+    rng = np.random.default_rng(10 * sorted(BAND).index(case) + n_shards)
+    cap = (1 << 8) // n_shards
+    key = 123456789
+    others = rng.integers(0, 1 << 42, size=24, dtype=np.uint64)
+    batch = np.concatenate([np.full(len(amounts), key, np.uint64), others,
+                            others[:9]])
+    adds = np.concatenate([np.array(amounts, np.uint32),
+                           rng.integers(1, 4, size=33).astype(np.uint32)])
+    order = rng.permutation(batch.shape[0])
+    batch, adds = batch[order], adds[order]
+    first = (np.array([key, 42], np.uint64), np.array([start, 7], np.uint32))
+    j = _jax_table(n_shards, cap).insert_kmers(*first)
+    j = j.insert_kmers(batch, adds)
+    want = _jax_contents(j, n_shards)
+    assert {k: c for g in want for k, c in g.items()}[key] == after
+    port = _port_table(n_shards, cap).insert_kmers(*first)
+    port = port.insert_kmers(batch, adds)
+    assert _port_contents(port, n_shards) == want
+    for _ in range(20):
+        keys, counts, claims = _model_tables(n_shards, cap)
+        kernel_model(keys, counts, claims, first[0].tolist(),
+                     first[1].tolist(), rng)
+        kernel_model(keys, counts, claims, batch.tolist(), adds.tolist(),
+                     rng)
+        assert _contents(keys, counts) == want
+        assert claims == [len(g) for g in want]
+
+
+def test_new_epoch_is_never_zero(monkeypatch):
+    """A batch's epoch is in [1, 2^32): a new one each call, and past
+    2^32 - 1 it starts again at 1, never at 0 (the pad of an empty
+    slot)."""
+    import itertools
+
+    first = hash_kernels.new_epoch()
+    assert 0 < first < hash_kernels.new_epoch() <= U32
+    monkeypatch.setattr(hash_kernels, "_epochs", itertools.count(U32 - 1))
+    assert [hash_kernels.new_epoch() for _ in range(4)] == [U32 - 1, U32, 1,
+                                                            2]
+
+
+def _model_source(keys, counts):
+    """A model table's occupied slots in slot order, shard after shard,
+    as the kernel reads another table's slots: keys and count words
+    (pads included)."""
+    rows = [(k, c) for ks, cs in zip(keys, counts)
+            for k, c in zip(ks, cs) if k != SENTINEL]
+    return [k for k, _ in rows], [c for _, c in rows]
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_merge_and_rehash_near_the_freeze_match_jax(n_shards):
+    """A merge whose source counts lie near SAT_THRESHOLD into a table
+    that holds the same keys near it, and that first grows (a rehash of
+    those counts): each key takes the source's count unless its own was
+    at or above the threshold, modulo 2^32, as in JAX (one table, or the
+    sharded table on a 4-device mesh); a key new to the master takes the
+    source's count whatever it is. The plain merge and the kernel model
+    (the grows' rehashes and the merge, each a batch of another table's
+    count words, pads included) equal the JAX table shard for shard
+    under 20 interleavings."""
+    rng = np.random.default_rng(31 + n_shards)
+    # 25 keys a table: the merge grows the master once (the JAX rule)
+    cap = 64 // n_shards
+    near = np.array([1001, 1002, 1003, 1004, 1005], np.uint64)
+    master = (np.concatenate([near, rng.integers(0, 1 << 42, size=20,
+                                                 dtype=np.uint64)]),
+              np.concatenate([np.array([T - 2, T - 1, T, T + 5, T - 1],
+                                       np.uint32),
+                              rng.integers(1, 9, size=20).astype(np.uint32)]))
+    fresh = np.array([2001, 2002], np.uint64)
+    source = (np.concatenate([near, fresh, rng.integers(
+                  0, 1 << 42, size=18, dtype=np.uint64)]),
+              np.concatenate([np.array([3, 1, 7, T - 1, 0x3000_0000,
+                                        T + 9, T - 3], np.uint32),
+                              rng.integers(1, 9, size=18).astype(np.uint32)]))
+    mesh = None if n_shards == 1 else make_mesh(n_shards)
+    j = _jax_table(n_shards, cap, mesh).insert_kmers(*master)
+    j_src = _jax_table(n_shards, cap, mesh).insert_kmers(*source)
+    j = j.merge_from(j_src)
+    want = _jax_contents(j, n_shards)
+    flat = {k: c for g in want for k, c in g.items()}
+    assert [flat[int(k)] for k in near] == [
+        T + 1, T, T, T + 5, (T - 1 + 0x3000_0000) & U32]
+    assert [flat[int(k)] for k in fresh] == [T + 9, T - 3]
+    grown = j.capacity if n_shards == 1 else j.local_capacity
+    assert grown > cap
+    port = _port_table(n_shards, cap).insert_kmers(*master)
+    port = port.merge_from(_port_table(n_shards, cap).insert_kmers(*source))
+    assert _port_contents(port, n_shards) == want
+    for _ in range(20):
+        keys, counts, claims = _model_tables(n_shards, cap)
+        kernel_model(keys, counts, claims, master[0].tolist(),
+                     master[1].tolist(), rng)
+        s_keys, s_counts, s_claims = _model_tables(n_shards, cap)
+        kernel_model(s_keys, s_counts, s_claims, source[0].tolist(),
+                     source[1].tolist(), rng)
+        size = cap
+        while size < grown:  # the grows: each a rehash into twice the slots
+            size *= 2
+            old = _model_source(keys, counts)
+            keys, counts, claims = _model_tables(n_shards, size)
+            kernel_model(keys, counts, claims, *old, rng)
+        kernel_model(keys, counts, claims, *_model_source(s_keys, s_counts),
+                     rng)
+        assert _contents(keys, counts) == want
+        assert claims == [len(g) for g in want]

@@ -38,13 +38,16 @@ COPIES = [
       for m in ("synth.py", "validate/results.py", "validate/report.py")]
 
 # Top-level definitions a copy may change on purpose: the native loader
-# builds its library into the port's build directory, not native/; the
+# builds the port's own copy of the loader's source (csrc/sharkio.cpp,
+# held to the JAX package's by test_loader_source_has_not_drifted) into the
+# port's build directory; the
 # synthesizer returns the amplicons it embeds (its reads stay the
 # original's byte for byte: test_synth_writes_the_same_reads and
 # tests/test_torch_panels.py); the read filter encodes a slab of reads
 # at once with numpy (it keeps the reads the JAX filter keeps:
 # tests/test_torch_read_filter.py).
-ALLOWED = {"sharkmer_tpu_torch/io/native.py": {"_LIB", "_build"},
+ALLOWED = {"sharkmer_tpu_torch/io/native.py": {"_NATIVE_DIR", "_SRC", "_LIB",
+                                               "_build"},
            "sharkmer_tpu_torch/pcr/read_filter.py": {
                "PrimerReadFilter", "_CODES", "CELLS", "_slabs", "_windows"},
            "sharkmer_tpu_torch/tools/synth.py": {
@@ -106,7 +109,45 @@ def test_native_loader_builds_into_build_dir():
     from sharkmer_tpu_torch.kernels.build import BUILD_DIR
 
     assert os.path.dirname(native._LIB) == BUILD_DIR
-    assert os.path.dirname(native._SRC) == os.path.join(ROOT, "native")
+    assert native._SRC == os.path.join(ROOT, "sharkmer_tpu_torch", "csrc",
+                                       "sharkio.cpp")
+    assert os.path.exists(native._SRC)
+
+
+def test_loader_source_has_not_drifted():
+    """The port's copy of the FASTQ loader's C++ source equals the JAX
+    package's line for line, but for the header comment's line that names
+    the Python binding."""
+    def lines(path):
+        with open(os.path.join(ROOT, path)) as f:
+            return f.read().splitlines()
+
+    port = lines("sharkmer_tpu_torch/csrc/sharkio.cpp")
+    original = lines("native/sharkio.cpp")
+    assert len(port) == len(original)
+    differ = [i for i, (a, b) in enumerate(zip(port, original)) if a != b]
+    assert differ == [next(i for i, line in enumerate(original)
+                           if "sharkmer_tpu/io/native.py" in line)]
+    line = differ[0]
+    assert port[line].startswith("//") and original[line].startswith("//")
+    assert all(text.startswith("//") for text in original[:line])
+    assert port[line] == original[line].replace(
+        "sharkmer_tpu/io/native.py", "sharkmer_tpu_torch/io/native.py")
+
+
+def test_port_reads_nothing_of_native():
+    """No module of the port and no part of chip_smoke.py names the JAX
+    package's ``native/`` directory."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _dirs, files in os.walk(os.path.join(ROOT,
+                                                   "sharkmer_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        for needle in ("native/", '"native"', "'native'"):
+            assert needle not in text, (os.path.relpath(path, ROOT), needle)
 
 
 def test_port_imports_no_jax():

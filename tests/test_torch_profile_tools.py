@@ -122,6 +122,37 @@ def test_fastq_stages_count_what_the_cli_counts(tmp_path, monkeypatch, fastq,
         + got["device_count_s"])
 
 
+@pytest.mark.parametrize("members", [1, 2])
+@pytest.mark.parametrize("max_reads", [0, 1700])
+def test_inflate_alone_inflates_the_reads(tmp_path, fastq, members,
+                                          max_reads):
+    """Stage (a'): zlib's inflate gives the file's text, every gzip member
+    of it, up to the first ``max_reads`` reads' lines (whole 1 MB blocks
+    of the file, so possibly more)."""
+    with gzip.open(fastq, "rb") as f:
+        text = f.read()
+    path = fastq
+    if members == 2:  # the same reads as two gzip members
+        path = tmp_path / "two.fastq.gz"
+        half = text.index(b"\n@r1250\n") + 1
+        path.write_bytes(gzip.compress(text[:half])
+                         + gzip.compress(text[half:]))
+    got = ingest_phase.inflate_alone(str(path), max_reads)
+    assert got["gzip_bytes"] <= os.path.getsize(path)
+    assert got["inflate_s"] > 0
+    if max_reads:
+        assert got["inflated_lines"] >= 4 * max_reads
+        assert got["inflated_bytes"] >= len(b"".join(
+            text.splitlines(keepends=True)[: 4 * max_reads]))
+    else:
+        assert got["gzip_bytes"] == os.path.getsize(path)
+        assert (got["inflated_bytes"], got["inflated_lines"]) == (
+            len(text), text.count(b"\n"))
+    plain = tmp_path / "reads.fastq"
+    plain.write_bytes(text)
+    assert ingest_phase.inflate_alone(str(plain), max_reads) is None
+
+
 def test_ingest_phase_main_prints_one_json_line(capsys, monkeypatch, fastq):
     monkeypatch.setenv("SHARKMER_TORCH_DEVICE", "cpu")
     assert ingest_phase.main(["--width", "10", "--iters", "1", "--fastq",
