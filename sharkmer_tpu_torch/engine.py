@@ -50,6 +50,7 @@ from .ops.hashtable import KmerTable
 from .ops.sorted_store import SortedKmerStore, _default_max_agg, _next_pow2
 from .parallel.sharded_table import ShardedKmerTable
 from .parallel.sorted_sharded import ShardedSortedStore
+from .utils import phases
 
 log = logging.getLogger("sharkmer")
 
@@ -57,6 +58,8 @@ N_READS_PER_BATCH = 1000  # round-robin chunk assignment granularity
 DEVICE_BATCH_READS = 1 << 16  # reads per device ingest call
 CHUNK_PENDING_READS = 1 << 13  # host-buffered reads per chunk (chunked mode)
 WIDTH_BUCKET = 32  # read widths are padded up to a multiple of this
+# the count stage's outermost spans (the CLI's ``count trace:`` line)
+COUNT_SPANS = ("engine.create", "ingest.batch", "consolidate")
 
 
 @dataclass
@@ -89,6 +92,11 @@ class CountingEngine:
     _kmer_count_dev: object = field(init=False, default=None)  # device int64
 
     def __post_init__(self):
+        phases.begin()  # one engine, one run record
+        with phases.span("engine.create"):
+            self._create()
+
+    def _create(self):
         self.device = torch.device(self.device)
         if self.n_shards > 1:
             # as the JAX package shards over the devices that exist; the
@@ -191,6 +199,10 @@ class CountingEngine:
                           max_reads: int = 0) -> bool:
         """Consume a pre-encoded [n, width] uint8 batch (native loader
         path). Returns True when max_reads is reached."""
+        with phases.span("ingest.batch"):
+            return self._ingest_code_batch(codes, lens, max_reads)
+
+    def _ingest_code_batch(self, codes, lens, max_reads: int) -> bool:
         n_chunks = max(self.n_chunks, 1)
         n = codes.shape[0]
         if max_reads > 0:
@@ -200,14 +212,18 @@ class CountingEngine:
             codes, lens = codes[:n], lens[:n]
         start = self.stats.n_reads_read
         self.stats.n_reads_read += n
-        self.stats.n_bases_read += int(lens.sum())
         if self._buffering:
-            chunk_ids = ((np.arange(start, start + n) // N_READS_PER_BATCH)
-                         % n_chunks)
+            with phases.span("ingest.host"):
+                self.stats.n_bases_read += int(lens.sum())
+                chunk_ids = ((np.arange(start, start + n) // N_READS_PER_BATCH)
+                             % n_chunks)
             for c in np.unique(chunk_ids):
-                rows = codes[chunk_ids == c]
+                with phases.span("ingest.host"):
+                    rows = codes[chunk_ids == c]
                 self._push_pending(int(c), rows, rows.shape[0])
         else:
+            with phases.span("ingest.host"):
+                self.stats.n_bases_read += int(lens.sum())
             self.table = self._ingest_codes_array(codes, self.table)
         return max_reads > 0 and self.stats.n_reads_read >= max_reads
 
@@ -217,18 +233,25 @@ class CountingEngine:
         if codes.shape[0] == 0:
             return table
         n_rows = codes.shape[0]
-        codes_dev = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
-        kmers, valid = encoding.canonical_kmers(codes_dev, self.k)
-        n_valid_bases = int(np.sum(codes < encoding.CODE_N))
-        # k-mer totals accumulate ON DEVICE: reading `valid` (or any
-        # per-batch scalar) on the host would wait for the device
-        # every batch
-        batch_kmers = valid.sum()
-        if self._kmer_count_dev is None:
-            self._kmer_count_dev = batch_kmers
-        else:
-            self._kmer_count_dev = self._kmer_count_dev + batch_kmers
-        table = table.insert_kmers(kmers.reshape(-1))
+        # a pageable copy: it waits for the stream
+        with phases.span("ingest.upload"), phases.sync("codes.upload"):
+            codes_dev = torch.from_numpy(
+                np.ascontiguousarray(codes)).to(self.device)
+        with phases.span("ingest.encode"):
+            kmers, valid = encoding.canonical_kmers(codes_dev, self.k)
+            # k-mer totals accumulate ON DEVICE: reading `valid` (or any
+            # per-batch scalar) on the host would wait for the device
+            # every batch
+            batch_kmers = valid.sum()
+            if self._kmer_count_dev is None:
+                self._kmer_count_dev = batch_kmers
+            else:
+                self._kmer_count_dev = self._kmer_count_dev + batch_kmers
+        # the host's count runs while the card encodes
+        with phases.span("ingest.host"):
+            n_valid_bases = int(np.sum(codes < encoding.CODE_N))
+        with phases.span("ingest.insert"):
+            table = table.insert_kmers(kmers.reshape(-1))
         self.stats.n_reads_ingested += n_rows
         self.stats.n_bases_ingested += n_valid_bases
         return table
@@ -250,6 +273,14 @@ class CountingEngine:
         """Finish ingestion; returns per-chunk histogram snapshots (or None
         when chunks == 0). Asserts the reference's count-conservation
         invariants."""
+        with phases.span("consolidate"):
+            return self._consolidate()
+
+    def _spectrum(self) -> np.ndarray:
+        with phases.span("consolidate.spectrum"):
+            return self.table.histogram(self.histo_max)
+
+    def _consolidate(self) -> list[np.ndarray] | None:
         histo_vecs: list[np.ndarray] | None = None
         if self._buffering:
             histo_vecs = []
@@ -260,17 +291,18 @@ class CountingEngine:
                         self._chunk_tables[chunk_id]
                     )
                     self._chunk_tables[chunk_id] = None  # free device memory
-                histo_vecs.append(self.table.histogram(self.histo_max))
+                histo_vecs.append(self._spectrum())
         else:
             if self._stream_buffer:
                 self.table = self._ingest_seqs(self._stream_buffer, self.table)
                 self._stream_buffer = []
             if self.n_chunks > 0:  # chunks == 1: one snapshot
-                histo_vecs = [self.table.histogram(self.histo_max)]
+                histo_vecs = [self._spectrum()]
 
         # materialize the device-side k-mer total (one sync per run)
         if self._kmer_count_dev is not None:
-            self.stats.n_kmers_ingested = int(self._kmer_count_dev)
+            with phases.sync("kmers.total"):
+                self.stats.n_kmers_ingested = int(self._kmer_count_dev)
         n_hashed = self.table.n_total()
         if n_hashed != self.stats.n_kmers_ingested:
             raise AssertionError(

@@ -36,6 +36,7 @@ import torch
 
 from ..ops.histogram import revcomp
 from ..ops.keys import SENTINEL
+from ..utils import phases
 from . import build
 from . import peer
 from .probe import BLOCK, INF32, PartTable
@@ -291,7 +292,8 @@ def closure_scratch(n_rows: int, depth: int, f_cap: int, device,
 def unpack_state(state) -> list[int]:
     """``[n_vis, iters, overflow, done]`` from the packed state: the one
     host read of a call."""
-    return [int(v) for v in state.tolist()]
+    with phases.sync("closure.state"):
+        return [int(v) for v in state.tolist()]
 
 
 def _lib() -> ctypes.CDLL:

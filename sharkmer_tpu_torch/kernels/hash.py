@@ -85,6 +85,7 @@ import torch
 from ..device import indexed
 from ..ops.histogram import revcomp
 from ..ops.keys import SENTINEL, keys_to_device
+from ..utils import phases
 from . import build, peer
 
 SAT_THRESHOLD = 0xE000_0000
@@ -367,7 +368,8 @@ def slot_pointers(groups, device) -> torch.Tensor:
     the address of each shard's slot 0. Valid while the groups live."""
     rows = [g.data_ptr() + j * g.shape[1] * 16
             for g in groups for j in range(g.shape[0])]
-    return torch.tensor(rows, dtype=torch.int64).to(device)
+    with phases.sync("pointers.upload"):
+        return torch.tensor(rows, dtype=torch.int64).to(device)
 
 
 def hash_insert(slots, claims, kmers, amounts=None, shard_lo: int = 0,
@@ -424,7 +426,9 @@ def hash_insert(slots, claims, kmers, amounts=None, shard_lo: int = 0,
     if rc != 0:
         raise RuntimeError(f"hash_insert: CUDA launch failed (cudaError {rc})")
     hash_insert.launches += 1
-    if int(overflow):
+    with phases.sync("insert.overflow"):
+        overflow = int(overflow)
+    if overflow:
         raise RuntimeError(f"hash_insert: an entry found no slot in {cap} "
                            f"probes (table full)")
 
@@ -639,8 +643,10 @@ class LookupWaves:
             state.follow(lib, self.fence)
         state.stage(lib, n)
         state.q[:n] = q
-        rc = lib.shk_hash_lookup_wave(self.device.index, *self.table, k, n,
-                                      *state.mapped, state.stream)
+        # the foreign call synchronises its stream before it returns
+        with phases.sync("lookup.wave"):
+            rc = lib.shk_hash_lookup_wave(self.device.index, *self.table, k,
+                                          n, *state.mapped, state.stream)
         if rc != 0:
             raise RuntimeError(f"hash_lookup: the wave failed (cudaError "
                                f"{rc})")

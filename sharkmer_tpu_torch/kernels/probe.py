@@ -36,6 +36,7 @@ import torch
 
 from ..ops.keys import SENTINEL
 from ..device import indexed
+from ..utils import phases
 from . import build, peer
 from .hash import owner
 
@@ -139,7 +140,8 @@ class PartTable:
             rows.append([sc.keys1d.data_ptr(), sc.counts1d.data_ptr(),
                          lut.data_ptr(), sc.first_key,
                          sc.lut.shape[0] | (sc.shift << 32), base])
-        self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
+        with phases.sync("parts.upload"):
+            self.desc = torch.tensor(rows, dtype=torch.int64).to(self.device)
         self.first_keys = self.desc[:, 3].contiguous()
         # closure.stack_parts' flat copies for the plain lookup, by device
         self.plain_blocks = {}

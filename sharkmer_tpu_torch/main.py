@@ -29,7 +29,7 @@ from .cli import (
     validate_args,
 )
 from .device import default_device, device_peak_bytes, synchronize
-from .engine import CountingEngine
+from .engine import COUNT_SPANS, CountingEngine
 from .io import fastq as fastq_mod
 from .io.cache import CacheConfig
 from .io.records import Mate, ReadRecord
@@ -37,6 +37,7 @@ from .io.writers import write_final_histo, write_incremental_histo
 from .pcr import compute_node_budget
 from .pcr.counts import FilteredTable
 from .stats import RunStats, peak_memory_bytes, print_summary, run_pcr, write_stats
+from .utils import phases
 
 log = logging.getLogger("sharkmer")
 
@@ -244,6 +245,9 @@ def _run_post_count(args, argv, start_run, engine, sample, directory, k,
         walls["ingest"], walls["consolidate"], walls["spcr"],
         "; ".join(peaks),
     )
+    # and its count stage's spans and host syncs (utils/phases)
+    log.warning("  count trace: %s",
+                phases.current().describe(*COUNT_SPANS))
 
     # ---- stats -------------------------------------------------------------
     command = " ".join(

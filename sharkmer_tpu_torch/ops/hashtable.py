@@ -54,6 +54,7 @@ from ..kernels.hash import (
     slot_counts,
     slot_keys,
 )
+from ..utils import phases
 from .encoding import canonical_kmers, revcomp_kmer
 from .histogram import histogram as _histogram
 from .histogram import revcomp
@@ -172,11 +173,12 @@ class KmerTable:
     def _grow(self) -> None:
         """Rehash into twice the capacity: the old slots feed the insert
         kernel."""
-        slots = new_slots((2 * self.capacity,), self.device)
-        claims = torch.zeros_like(self.claims)
-        hash_insert(slots, claims, self.slots)
-        self.slots, self.claims = slots, claims
-        self.fence.written([self.device])
+        with phases.span("store.grow"):
+            slots = new_slots((2 * self.capacity,), self.device)
+            claims = torch.zeros_like(self.claims)
+            hash_insert(slots, claims, self.slots)
+            self.slots, self.claims = slots, claims
+            self.fence.written([self.device])
 
     # -- queries -------------------------------------------------------------
 
@@ -203,14 +205,17 @@ class KmerTable:
 
     def n_unique(self) -> int:
         """Occupied slots: the inserts' claim counter, one number read."""
-        return int(self.claims.sum())
+        with phases.sync("claims.read"):
+            return int(self.claims.sum())
 
     def n_total(self) -> int:
-        return int(as_u32(self.counts).sum())
+        with phases.sync("counts.sum"):
+            return int(as_u32(self.counts).sum())
 
     def max_count(self) -> int:
         occupied = self.keys != SENTINEL
-        return int(torch.where(occupied, as_u32(self.counts), 0).max())
+        with phases.sync("counts.max"):
+            return int(torch.where(occupied, as_u32(self.counts), 0).max())
 
     def prefix_scan(self, oligos, oligo_len: int, min_count: int):
         """All table k-mers whose start matches an oligo (either strand),
@@ -242,12 +247,15 @@ class KmerTable:
             rc_hit = occupied & ~fwd_hit & _member(rc, low)
             hit[lo : lo + SCAN_CHUNK] = fwd_hit | rc_hit
             is_rc[lo : lo + SCAN_CHUNK] = rc_hit
-        idx = torch.nonzero(hit).reshape(-1)
+        with phases.sync("scan.nonzero"):
+            idx = torch.nonzero(hit).reshape(-1)
         kmers = self.keys[idx]
         # revcomp only the hits, not the whole table
         kmers = torch.where(is_rc[idx], revcomp(kmers, self.k), kmers)
         counts = as_u32(self.counts[idx])
-        return keys_to_numpy(kmers), counts.cpu().numpy().astype(np.uint32)
+        with phases.sync("counts.read"):
+            counts = counts.cpu()
+        return keys_to_numpy(kmers), counts.numpy().astype(np.uint32)
 
     # -- host export ---------------------------------------------------------
 
@@ -262,9 +270,12 @@ class KmerTable:
         counts = as_u32(self.counts)
         if min_count > 1:
             keep &= counts >= min_count
-        keys, order = torch.sort(self.keys[keep])
-        counts = counts[keep][order]
-        return keys_to_numpy(keys), counts.cpu().numpy().astype(np.uint32)
+        with phases.sync("export.mask", calls=2):
+            keys, counts = self.keys[keep], counts[keep]
+        keys, order = torch.sort(keys)
+        with phases.sync("counts.read"):
+            counts = counts[order].cpu()
+        return keys_to_numpy(keys), counts.numpy().astype(np.uint32)
 
     def to_dict(self) -> dict[int, int]:
         keys, counts = self.to_sorted_arrays()

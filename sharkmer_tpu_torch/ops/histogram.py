@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import phases
 from .keys import SENTINEL
 
 
@@ -21,9 +22,14 @@ def histogram(counts: torch.Tensor, histo_max: int) -> np.ndarray:
     k-mers.
     """
     clipped = torch.clamp(counts, max=histo_max + 1)
-    histo = torch.bincount(clipped, minlength=histo_max + 2)
-    histo[0] = 0
-    return histo.cpu().numpy().astype(np.uint64)
+    # on the card bincount reads its input's min and its max to the host
+    with phases.sync("spectrum.bincount", calls=2):
+        histo = torch.bincount(clipped, minlength=histo_max + 2)
+    with phases.sync("spectrum.zero"):  # a host scalar copied up
+        histo[0] = 0
+    with phases.sync("spectrum.read"):
+        histo = histo.cpu()
+    return histo.numpy().astype(np.uint64)
 
 
 def histogram_across(counts_list, histo_max: int) -> np.ndarray:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import phases
 from .encoding import KMER_SENTINEL
 
 SENTINEL = (1 << 63) - 1  # the device form of KMER_SENTINEL
@@ -34,12 +35,15 @@ def keys_to_device(keys, device) -> torch.Tensor:
     arr = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64)).reshape(-1)
     t = torch.from_numpy(arr.view(np.int64).copy())
     t[t == -1] = SENTINEL
-    return t.to(device)
+    with phases.sync("keys.upload"):
+        return t.to(device)
 
 
 def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:
     """int64 key tensor -> numpy uint64 with KMER_SENTINEL restored."""
-    arr = keys.detach().cpu().numpy().astype(np.int64, copy=True)
+    with phases.sync("keys.read"):
+        host = keys.detach().cpu()
+    arr = host.numpy().astype(np.int64, copy=True)
     arr = arr.view(np.uint64)
     arr[arr == np.uint64(SENTINEL)] = KMER_SENTINEL
     return arr
@@ -47,11 +51,14 @@ def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:
 
 def counts_to_device(counts, device) -> torch.Tensor:
     arr = np.asarray(counts, dtype=np.uint32).reshape(-1)
-    return torch.from_numpy(arr.astype(np.int64)).to(device)
+    with phases.sync("counts.upload"):
+        return torch.from_numpy(arr.astype(np.int64)).to(device)
 
 
 def counts_to_numpy(counts: torch.Tensor) -> np.ndarray:
-    return counts.detach().cpu().numpy().astype(np.uint32)
+    with phases.sync("counts.read"):
+        host = counts.detach().cpu()
+    return host.numpy().astype(np.uint32)
 
 
 def pack(keys: torch.Tensor, counts: torch.Tensor, shift: int,

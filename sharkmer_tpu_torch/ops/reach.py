@@ -93,7 +93,8 @@ def _build_lut(keys: torch.Tensor, bits: int, shift: int):
     bounds = torch.arange((1 << bits) + 1, dtype=torch.int64,
                           device=keys.device) << shift
     lut = torch.searchsorted(keys, bounds, out_int32=True)
-    max_occ = int((lut[1:] - lut[:-1]).max())
+    with phases.sync("lut.max"):
+        max_occ = int((lut[1:] - lut[:-1]).max())
     return lut, max_occ
 
 
@@ -266,42 +267,42 @@ def _drive_closure(run_kernel, roots: np.ndarray, depth: int,
         c0 = np.full(c_cap, EMPTY, np.uint64)
         c0[: len(chunk)] = chunk
         cur_f, cur_n = f_cap, F_NARROW
-        t_call = time.perf_counter()
-        for attempt in range(max_retries + 1):
-            out = run_kernel(c0, cur_f, min(cur_n, cur_f))
-            keys, counts, boundary, scalars = out[:4]
-            log_sorted = out[4] if len(out) > 4 else None
-            n_vis, it, overflow, done = (int(v) for v in scalars)
-            if not overflow:
-                break
-            if attempt == max_retries:
-                return None
-            # an overflow can come from either phase: grow both widths
-            cur_f *= F_GROW
-            cur_n *= F_GROW
-        if n_vis > int(keys.shape[0]):
-            if spill_gather is None or log_sorted is None:
-                n_vis = int(keys.shape[0])
+        with phases.span("closures"):
+            t_call = time.perf_counter()
+            for attempt in range(max_retries + 1):
+                out = run_kernel(c0, cur_f, min(cur_n, cur_f))
+                keys, counts, boundary, scalars = out[:4]
+                log_sorted = out[4] if len(out) > 4 else None
+                n_vis, it, overflow, done = (int(v) for v in scalars)
+                if not overflow:
+                    break
+                if attempt == max_retries:
+                    return None
+                # an overflow can come from either phase: grow both widths
+                cur_f *= F_GROW
+                cur_n *= F_GROW
+            if n_vis > int(keys.shape[0]):
+                if spill_gather is None or log_sorted is None:
+                    n_vis = int(keys.shape[0])
+                else:
+                    # the visited set exceeds the OUT_W prefix: one wider
+                    # gather over the sorted id log
+                    w = 1 << max(n_vis - 1, 0).bit_length()
+                    w = min(w, int(log_sorted.shape[0]))
+                    keys, counts = spill_gather(log_sorted, w)
+            if n_vis:
+                out_k.append(keys_to_numpy(keys[:n_vis]))
+                out_c.append(counts_to_numpy(counts[:n_vis]))
             else:
-                # the visited set exceeds the OUT_W prefix: one wider
-                # gather over the sorted id log
-                w = 1 << max(n_vis - 1, 0).bit_length()
-                w = min(w, int(log_sorted.shape[0]))
-                keys, counts = spill_gather(log_sorted, w)
-        if n_vis:
-            out_k.append(keys_to_numpy(keys[:n_vis]))
-            out_c.append(counts_to_numpy(counts[:n_vis]))
-        else:
-            out_k.append(np.zeros(0, np.uint64))
-            out_c.append(np.zeros(0, np.uint32))
-        complete = complete and bool(done)
-        if not done:
-            bh = keys_to_numpy(boundary)
-            out_b.append(bh[bh != EMPTY])
-        iters += it
-        call_wall = time.perf_counter() - t_call
-        phases.add("closures", call_wall)
-        phases.add("closure_levels", 0.0, calls=it)
+                out_k.append(np.zeros(0, np.uint64))
+                out_c.append(np.zeros(0, np.uint32))
+            complete = complete and bool(done)
+            if not done:
+                bh = keys_to_numpy(boundary)
+                out_b.append(bh[bh != EMPTY])
+            iters += it
+            call_wall = time.perf_counter() - t_call
+        phases.count("closure_levels", it)
         log.debug(
             "reach: %d roots, %d iters, %d visited, f_cap %d, "
             "done=%s, %.3fs",
@@ -327,6 +328,12 @@ def reach(table: PartTable, roots: np.ndarray, min_count: int, k: int,
           pre=None) -> ReachResult | None:
     """Single-device reach over a partitioned table of ``PartSidecar``s
     (built once per flush by the store's ``_spcr_index``)."""
+    with phases.span("reach"):
+        return _reach(table, roots, min_count, k, depth, f_cap, max_retries,
+                      pre)
+
+
+def _reach(table, roots, min_count, k, depth, f_cap, max_retries, pre):
     device = table.device
     mc = max(min_count, 1)
     pre_k = _pad_pre(pre, roots=roots)

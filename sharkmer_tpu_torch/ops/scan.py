@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import phases
 from .encoding import KMER_SENTINEL
 from .histogram import revcomp
 from .keys import SENTINEL, counts_to_numpy, keys_to_numpy
@@ -122,16 +123,18 @@ def range_scan_part(part_keys, part_counts, rc_sorted, rc_order, n: int,
     padded[: len(oligos)] = np.sort(np.asarray(oligos, np.uint64))
     req = np.full(width, -1, np.int64)
     req[: len(oligos)] = 0
-    oj = torch.from_numpy(padded).to(device)
+    with phases.sync("scan.upload", calls=2):
+        oj = torch.from_numpy(padded).to(device)
+        rj = torch.from_numpy(req).to(device)
     sj = torch.full((width,), 2 * (k - oligo_len), dtype=torch.int64,
                     device=device)
-    rj = torch.from_numpy(req).to(device)
     while True:
         kmers, counts, _reqs, totals = panel_scan(
             part_keys, part_counts, rc_sorted, rc_order, n, oj, sj, rj, k,
             max_out,
         )
-        tot = int(totals.max())
+        with phases.sync("scan.total"):
+            tot = int(totals.max())
         if tot <= max_out:
             break
         max_out = 1 << (tot - 1).bit_length()

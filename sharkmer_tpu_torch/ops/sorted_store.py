@@ -45,6 +45,7 @@ import torch
 from ..kernels.probe import PartTable
 from ..kernels.run_scan import run_ends, run_starts
 from ..kernels.stitch import stitch_rows
+from ..utils import phases
 from . import reach as reach_mod
 from .encoding import canonical_kmers
 from .histogram import histogram as _histogram
@@ -130,7 +131,9 @@ def _compact(sk, totals, keep, count_bits: int):
         zero = torch.zeros_like(sk)
         fits = (torch.where(keep, totals, zero).max() < cap) & (
             torch.where(keep, sk, zero).max() < key_cap)
-        if bool(fits):
+        with phases.sync("compact.fits"):
+            fits = bool(fits)
+        if fits:
             words = torch.sort(pack(sk, totals, count_bits, keep)).values
             return unpack(words, count_bits)
     out_k = torch.where(keep, sk, torch.full_like(sk, SENTINEL))
@@ -154,7 +157,9 @@ def _aggregate(kmers, counts, count_bits: int = 0):
         fits = (counts.max() < cap) & (
             torch.where(occupied, kmers, torch.zeros_like(kmers)).max()
             < key_cap)
-        if bool(fits):
+        with phases.sync("aggregate.fits"):
+            fits = bool(fits)
+        if fits:
             words = torch.sort(pack(kmers, counts, count_bits, occupied)).values
             sk, sc = unpack(words, count_bits)
     if sk is None:
@@ -168,7 +173,8 @@ def _aggregate(kmers, counts, count_bits: int = 0):
     run_base = excl[run_starts(sk).to(torch.int64)]
     run_total = torch.clamp(incl - run_base, max=COUNT_MAX)
     keep = last & (sk != SENTINEL)
-    n_unique = int(keep.sum())
+    with phases.sync("aggregate.n_unique"):
+        n_unique = int(keep.sum())
     out_k, out_c = _compact(sk, run_total, keep, count_bits)
     return out_k, out_c, n_unique
 
@@ -185,7 +191,8 @@ def _aggregate_ingest(kmers, count_bits: int):
     pos = torch.arange(n, dtype=torch.int32, device=sk.device)
     run_total = (pos - run_starts(sk) + 1).to(torch.int64)
     keep = last & (sk != SENTINEL)
-    n_unique = int(keep.sum())
+    with phases.sync("drain.n_unique"):
+        n_unique = int(keep.sum())
     out_k, out_c = _compact(sk, run_total, keep, count_bits)
     return out_k, out_c, n_unique
 
@@ -208,9 +215,12 @@ def _aggregate_ingest_v2(kmers, count_bits: int):
     run_total = (pos - run_starts(sk) + 1).to(torch.int64)
     keep = last & (sk != SENTINEL)
     cap = (1 << count_bits) - 1
-    if int(torch.where(keep, run_total, 0).max()) >= cap:
+    with phases.sync("drain.max"):
+        most = int(torch.where(keep, run_total, 0).max())
+    if most >= cap:
         out_k, out_c = _compact(sk, run_total, keep, 0)
-        n_unique = int(keep.sum())
+        with phases.sync("drain.n_unique"):
+            n_unique = int(keep.sum())
         return out_k, out_c, n_unique, n_unique
     # biased packed words sort signed in the unsigned word order; rows
     # not kept are the biased all-ones sentinel (INT64_MAX), last
@@ -232,7 +242,8 @@ def _aggregate_ingest_v2(kmers, count_bits: int):
     flat = stitch_rows(rows, offs, SENTINEL)
     del rows
     out_k, out_c = unpack(flat, count_bits)
-    n_padded, n_real = torch.stack([cntq.sum(), cnt.sum()]).tolist()
+    with phases.sync("drain.sizes"):
+        n_padded, n_real = torch.stack([cntq.sum(), cnt.sum()]).tolist()
     return out_k, out_c, n_padded, n_real
 
 
@@ -259,7 +270,8 @@ def _aggregate_ingest_ghosted(kmers):
     occupied = sk != SENTINEL
     live = first & occupied
     counts = torch.where(live, total, torch.zeros_like(total))
-    n_padded, n_real = torch.stack([occupied.sum(), live.sum()]).tolist()
+    with phases.sync("drain.sizes"):
+        n_padded, n_real = torch.stack([occupied.sum(), live.sum()]).tolist()
     return sk, counts, n_padded, n_real
 
 
@@ -295,7 +307,8 @@ def _filter_compact(keys, counts, min_count: int):
     """Rows with count >= ``min_count`` kept in order at the front,
     sentinels behind, same width. Returns (keys, counts, n_kept)."""
     keep = counts >= max(min_count, 1)  # empty and ghost rows count 0
-    kk, kc = keys[keep], counts[keep]
+    with phases.sync("filter.mask", calls=2):
+        kk, kc = keys[keep], counts[keep]
     n = kk.shape[0]
     out_k, out_c = _slice_run(kk, kc, 0, n, keys.shape[0])
     return out_k, out_c, n
@@ -313,7 +326,8 @@ class _Part:
 
     def real(self) -> int:
         if self.n_real < 0:
-            self.n_real = int((self.counts > 0).sum())
+            with phases.sync("part.real"):
+                self.n_real = int((self.counts > 0).sum())
         return self.n_real
 
 
@@ -452,21 +466,22 @@ class SortedKmerStore:
         self._buf = None
         self._fill = 0
         count_bits = self._count_bits()
-        # nu: occupied rows, ghosts included; the run keeps that width
-        if not self.parts and self._staged is None:
-            # first drain into an empty store: the ghosted run seeds
-            # partitions as is (no compaction sort)
-            uk, uc, nu, _n_real = _aggregate_ingest_ghosted(buf)
-        elif _drain_v2_wanted(width, count_bits, self.device):
-            uk, uc, nu, _n_real = _aggregate_ingest_v2(buf, count_bits)
-        else:
-            uk, uc, nu = _aggregate_ingest(buf, count_bits)
-        del buf
-        if nu == 0:
-            return
-        run_w = min(width, _next_pow2(nu))
-        if run_w != width:
-            uk, uc = uk[:run_w].clone(), uc[:run_w].clone()
+        with phases.span("store.drain"):
+            # nu: occupied rows, ghosts included; the run keeps that width
+            if not self.parts and self._staged is None:
+                # first drain into an empty store: the ghosted run seeds
+                # partitions as is (no compaction sort)
+                uk, uc, nu, _n_real = _aggregate_ingest_ghosted(buf)
+            elif _drain_v2_wanted(width, count_bits, self.device):
+                uk, uc, nu, _n_real = _aggregate_ingest_v2(buf, count_bits)
+            else:
+                uk, uc, nu = _aggregate_ingest(buf, count_bits)
+            del buf
+            if nu == 0:
+                return
+            run_w = min(width, _next_pow2(nu))
+            if run_w != width:
+                uk, uc = uk[:run_w].clone(), uc[:run_w].clone()
         self._stage_run(uk, uc, nu)
 
     def _stage_run(self, uk, uc, nu: int) -> None:
@@ -483,13 +498,14 @@ class SortedKmerStore:
             self._merge_run(sk, sc, sn)
             self._staged = (uk, uc, nu)
             return
-        mk, mc, mn = _aggregate(
-            torch.cat([sk, uk]), torch.cat([sc, uc]), self._count_bits()
-        )
-        # keep the stage at the smallest power-of-two width that holds it
-        want = min(mk.shape[0], _next_pow2(mn))
-        if want != mk.shape[0]:
-            mk, mc = mk[:want].clone(), mc[:want].clone()
+        with phases.span("store.merge"):
+            mk, mc, mn = _aggregate(
+                torch.cat([sk, uk]), torch.cat([sc, uc]), self._count_bits()
+            )
+            # keep the stage at the smallest power-of-two width that holds it
+            want = min(mk.shape[0], _next_pow2(mn))
+            if want != mk.shape[0]:
+                mk, mc = mk[:want].clone(), mc[:want].clone()
         self._staged = (mk, mc, mn)
 
     def _fold_staged(self) -> None:
@@ -502,10 +518,18 @@ class SortedKmerStore:
         """Fold one sorted run of ``nu`` occupied rows into the master.
         Partition widths are powers of two that grow by doubling up to
         ``part_budget``."""
-        W = self.part_budget
         if nu == 0:
             return
-        if nu > W and bool((uc[:nu] == 0).any()):
+        with phases.span("store.merge"):
+            self._merge_master(uk, uc, nu)
+
+    def _merge_master(self, uk, uc, nu: int) -> None:
+        W = self.part_budget
+        ghosted = False
+        if nu > W:
+            with phases.sync("merge.ghosts"):
+                ghosted = bool((uc[:nu] == 0).any())
+        if ghosted:
             # a ghosted run cut into W-slices can leave a key's live row
             # and its ghosts in two partitions; the ghosts' partition
             # then starts at that key, later inserts of it route there,
@@ -523,7 +547,10 @@ class SortedKmerStore:
                 size = min(W, nu - pos)
                 sk, sc = _slice_run(uk, uc, pos, size,
                                     min(W, _next_pow2(size)))
-                first_key = 0 if pos == 0 else int(sk[0])
+                first_key = 0
+                if pos:
+                    with phases.sync("merge.first_key"):
+                        first_key = int(sk[0])
                 self.parts.append(_Part(sk, sc, size, first_key))
                 pos += size
             return
@@ -533,9 +560,12 @@ class SortedKmerStore:
         firsts = [p.first_key for p in self.parts[1:]]
         splits = []
         if firsts:
-            bounds = torch.tensor(firsts, dtype=torch.int64, device=self.device)
-            splits = torch.clamp(
-                torch.searchsorted(uk, bounds), max=nu).tolist()
+            with phases.sync("merge.bounds"):  # a pageable copy up
+                bounds = torch.tensor(firsts, dtype=torch.int64,
+                                      device=self.device)
+            with phases.sync("merge.splits"):
+                splits = torch.clamp(
+                    torch.searchsorted(uk, bounds), max=nu).tolist()
         starts = [0, *splits]
         ends = [*splits, nu]
         # snapshot the targets: a merge may split its partition and
@@ -583,7 +613,9 @@ class SortedKmerStore:
         half = (mn + 1) // 2
         lk, lc = _slice_run(mk, mc, 0, half, _next_pow2(half))
         rk, rc_ = _slice_run(mk, mc, half, mn - half, _next_pow2(mn - half))
-        right = _Part(rk, rc_, mn - half, int(rk[0]), n_real=mn - half)
+        with phases.sync("split.first_key"):
+            first_key = int(rk[0])
+        right = _Part(rk, rc_, mn - half, first_key, n_real=mn - half)
         self.parts[p_idx] = _Part(lk, lc, half, part.first_key, n_real=half)
         self.parts.insert(p_idx + 1, right)
         return right
@@ -628,13 +660,18 @@ class SortedKmerStore:
 
     def n_total(self) -> int:
         s = self._flushed()
-        return sum(int(p.counts.sum()) for p in s.parts)
+        total = 0
+        for p in s.parts:
+            with phases.sync("counts.sum"):
+                total += int(p.counts.sum())
+        return total
 
     def max_count(self) -> int:
         s = self._flushed()
         if not s.parts:
             return 0
-        return max(int(p.counts.max()) for p in s.parts)
+        with phases.sync("counts.max", calls=len(s.parts)):
+            return max(int(p.counts.max()) for p in s.parts)
 
     # -- sPCR support: reach closure and primer range scans ---------------------
 
@@ -722,9 +759,10 @@ class SortedKmerStore:
             all_shifts[pos : pos + n] = 2 * (s.k - olen)
             all_reqs[pos : pos + n] = ri
             pos += n
-        oj = torch.from_numpy(all_oligos).to(s.device)
-        sj = torch.from_numpy(all_shifts).to(s.device)
-        rj = torch.from_numpy(all_reqs).to(s.device)
+        with phases.sync("scan.upload", calls=3):
+            oj = torch.from_numpy(all_oligos).to(s.device)
+            sj = torch.from_numpy(all_shifts).to(s.device)
+            rj = torch.from_numpy(all_reqs).to(s.device)
 
         results = [([empty[0]], [empty[1]]) for _ in requests]
         for p, (rc_sorted, rc_order) in zip(s.parts, rc_indexes):
@@ -734,13 +772,16 @@ class SortedKmerStore:
                     p.kmers, p.counts, rc_sorted, rc_order, p.n, oj, sj, rj,
                     s.k, mo,
                 )
-                tot = int(totals.max())
+                with phases.sync("scan.total"):
+                    tot = int(totals.max())
                 if tot <= mo:
                     break
                 mo = 1 << (tot - 1).bit_length()
             kf = keys_to_numpy(kk)
             cf = counts_to_numpy(cc)
-            rf = rr.cpu().numpy()
+            with phases.sync("scan.read"):
+                rf = rr.cpu()
+            rf = rf.numpy()
             # count-0 rows are ghost duplicates of a live key: drop them
             # so results honour the min-count-1 contract
             live = (rf >= 0) & (cf > 0)
@@ -796,8 +837,10 @@ class SortedKmerStore:
         counts = [np.zeros(0, np.uint32)]
         for p in s.parts:
             keep = p.counts >= max(min_count, 1)  # empty and ghost rows count 0
-            keys.append(keys_to_numpy(p.kmers[keep]))
-            counts.append(counts_to_numpy(p.counts[keep]))
+            with phases.sync("export.mask", calls=2):
+                kept = p.kmers[keep], p.counts[keep]
+            keys.append(keys_to_numpy(kept[0]))
+            counts.append(counts_to_numpy(kept[1]))
         return np.concatenate(keys), np.concatenate(counts)
 
     def to_dict(self) -> dict[int, int]:

@@ -60,6 +60,7 @@ from ..ops.encoding import canonical_kmers
 from ..ops.hashtable import MAX_LOAD, KmerTable, batch_amounts, batch_keys
 from ..ops.histogram import histogram_across
 from ..ops.keys import SENTINEL, keys_to_numpy
+from ..utils import phases
 
 
 @dataclass
@@ -139,13 +140,14 @@ class ShardedKmerTable:
     def _grow(self) -> None:
         """Every shard to twice its capacity: one insert a group of its
         own old slots (each key lands in the shard it came from)."""
-        cap = 2 * self.local_capacity
-        slots = [new_slots((old.shape[0], cap), old.device)
-                 for old in self.group_slots]
-        claims = [torch.zeros_like(c) for c in self.group_claims]
-        self._each_group(slots, claims, self.group_slots)
-        self.group_slots, self.group_claims = slots, claims
-        self.fence.written(self.devices)
+        with phases.span("store.grow"):
+            cap = 2 * self.local_capacity
+            slots = [new_slots((old.shape[0], cap), old.device)
+                     for old in self.group_slots]
+            claims = [torch.zeros_like(c) for c in self.group_claims]
+            self._each_group(slots, claims, self.group_slots)
+            self.group_slots, self.group_claims = slots, claims
+            self.fence.written(self.devices)
 
     def _each_group(self, slots, claims, sources, amounts=None) -> None:
         """One windowed ``hash_insert`` a group: ``sources[d]`` (a batch
@@ -223,17 +225,20 @@ class ShardedKmerTable:
 
     def n_unique(self) -> int:
         """Occupied slots: every group's claim counters, one host read."""
-        return int(self._gather(lambda s, c: c.sum()).sum())
+        with phases.sync("claims.read"):
+            return int(self._gather(lambda s, c: c.sum()).sum())
 
     def n_total(self) -> int:
-        return int(self._gather(
-            lambda s, c: as_u32(slot_counts(s)).sum()).sum())
+        with phases.sync("counts.sum"):
+            return int(self._gather(
+                lambda s, c: as_u32(slot_counts(s)).sum()).sum())
 
     def max_count(self) -> int:
         def group_max(slots, _claims):
             occupied = slot_keys(slots) != SENTINEL
             return torch.where(occupied, as_u32(slot_counts(slots)), 0).max()
-        return int(self._gather(group_max).max())
+        with phases.sync("counts.max"):
+            return int(self._gather(group_max).max())
 
     def prefix_scan(self, oligos, oligo_len: int, min_count: int):
         """``KmerTable.prefix_scan`` of every shard, concatenated in shard

@@ -63,6 +63,7 @@ from ..ops.sorted_store import (
     _next_pow2,
     packed_count_bits,
 )
+from ..utils import phases
 from .sharded_reach import ShardedSpcrIndex, sharded_range_scan
 
 
@@ -72,7 +73,9 @@ def _by_owner(kmers, counts, n_shards: int) -> list:
     shard's (keys, counts) in batch order."""
     own = torch.where(kmers != SENTINEL, owner(kmers, n_shards), n_shards)
     order = torch.sort(own, stable=True).indices
-    sizes = torch.bincount(own, minlength=n_shards + 1)[:n_shards].tolist()
+    # bincount reads the owners' min and max, then the sizes are read
+    with phases.sync("route.sizes", calls=3):
+        sizes = torch.bincount(own, minlength=n_shards + 1)[:n_shards].tolist()
     kmers, counts = kmers[order], counts[order]
     groups, pos = [], 0
     for size in sizes:
@@ -245,13 +248,17 @@ class ShardedSortedStore:
                             for k, c in zip(s.kmers, s.counts)])
 
     def n_unique(self) -> int:
-        return int(self._gather(lambda k, c: (k != SENTINEL).sum()).sum())
+        with phases.sync("claims.read"):
+            return int(self._gather(
+                lambda k, c: (k != SENTINEL).sum()).sum())
 
     def n_total(self) -> int:
-        return int(self._gather(lambda k, c: c.sum()).sum())
+        with phases.sync("counts.sum"):
+            return int(self._gather(lambda k, c: c.sum()).sum())
 
     def max_count(self) -> int:
-        return int(self._gather(lambda k, c: c.max()).max())
+        with phases.sync("counts.max"):
+            return int(self._gather(lambda k, c: c.max()).max())
 
     # -- sPCR support: reach closure and primer range scans ----------------------
 

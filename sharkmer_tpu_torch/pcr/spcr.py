@@ -72,11 +72,9 @@ def do_pcr(
     gene = params.gene_name
     log.info("[%s] Running PCR", gene)
     log.info("[%s] Preprocessing primers", gene)
-    t_phase = time.monotonic()
-    forward_primer_kmers, reverse_primer_kmers = primers_mod.get_primer_kmers(
-        params, kmer_counts
-    )
-    phases.add("primer_discovery", time.monotonic() - t_phase)
+    with phases.span("primer_discovery"):
+        forward_primer_kmers, reverse_primer_kmers = (
+            primers_mod.get_primer_kmers(params, kmer_counts))
 
     fwd_missing = len(forward_primer_kmers) == 0
     rev_missing = len(reverse_primer_kmers) == 0
@@ -163,23 +161,25 @@ def do_pcr(
     # (never quiescing, overflowing the frontier ladder), while a
     # step-threshold closure stays confined to the amplicon's
     # high-coverage neighbourhood and quiesces in ~len/2 levels.
-    for step_idx, min_count in enumerate(coverage_thresholds):
-        log.info(
-            "[%s] Threshold step %d/%d (min_count=%d)",
-            gene, step_idx + 1, len(coverage_thresholds), min_count,
-        )
-        fresh_graph = seed_graph.clone()
-        fresh_lookup = {
-            fresh_graph.nodes[n].sub_kmer: n for n in fresh_graph.node_ids()
-        }
-        final_graph, _final_lookup, found = graph_mod.extend_graph(
-            fresh_graph, fresh_lookup, kmer_counts, min_count, params,
-            max_num_nodes,
-        )
-        current_graph = final_graph
-        if found:
-            found_path_signal = True
-            break
+    # the span's self time is the host graph replay: the reach calls of
+    # its prefetch sessions are spans of their own
+    with phases.span("spcr.extend"):
+        for step_idx, min_count in enumerate(coverage_thresholds):
+            log.info(
+                "[%s] Threshold step %d/%d (min_count=%d)",
+                gene, step_idx + 1, len(coverage_thresholds), min_count,
+            )
+            fresh_graph = seed_graph.clone()
+            fresh_lookup = {fresh_graph.nodes[n].sub_kmer: n
+                            for n in fresh_graph.node_ids()}
+            final_graph, _final_lookup, found = graph_mod.extend_graph(
+                fresh_graph, fresh_lookup, kmer_counts, min_count, params,
+                max_num_nodes,
+            )
+            current_graph = final_graph
+            if found:
+                found_path_signal = True
+                break
 
     if current_graph.node_count() >= max_num_nodes:
         failure_reason = "node budget exceeded"
@@ -188,93 +188,87 @@ def do_pcr(
         "[%s] Done. Time to extend graph: %s",
         gene, format_duration(time.monotonic() - extend_start),
     )
-    # extend_total includes the device closure time accumulated under
-    # "closures" by ops.reach; the difference is the host graph replay
-    phases.add("extend_total", time.monotonic() - extend_start)
 
     assembly_records_all: list[paths_mod.AssemblyRecord] = []
     amplicon_index = 0
-    t_phase = time.monotonic()
-
-    if found_path_signal:
-        pruned_graph = current_graph.clone()
-        prune_start = time.monotonic()
-        log.info("[%s] Pruning the assembly graph...", gene)
-        pruning_mod.remove_low_coverage_tips(
-            pruned_graph, kmer_counts.k, params.tip_coverage_fraction
-        )
-        pruning_mod.reachability_pruning(pruned_graph)
-        graph_mod.annotate_coverage_ratios(pruned_graph)
-        log.info(
-            "[%s] Done. Time to prune graph: %s",
-            gene, format_duration(time.monotonic() - prune_start),
-        )
-
-        if dump_graph:
-            dot_string = write_annotated_dot(pruned_graph, kmer_counts)
-            file_name = os.path.join(
-                output_directory,
-                f"{sample_name}_{gene}_{params.min_count}.dot",
+    with phases.span("spcr.assembly"):
+        if found_path_signal:
+            pruned_graph = current_graph.clone()
+            prune_start = time.monotonic()
+            log.info("[%s] Pruning the assembly graph...", gene)
+            pruning_mod.remove_low_coverage_tips(
+                pruned_graph, kmer_counts.k, params.tip_coverage_fraction
             )
-            with open(file_name, "w") as f:
-                f.write(dot_string)
+            pruning_mod.reachability_pruning(pruned_graph)
+            graph_mod.annotate_coverage_ratios(pruned_graph)
+            log.info(
+                "[%s] Done. Time to prune graph: %s",
+                gene, format_duration(time.monotonic() - prune_start),
+            )
 
-        threading_annotations = None
-        if gene_reads:
-            start = time.monotonic()
-            log.info("[%s] Threading reads through assembly graph...", gene)
-            from ..io.records import Mate
+            if dump_graph:
+                dot_string = write_annotated_dot(pruned_graph, kmer_counts)
+                file_name = os.path.join(
+                    output_directory,
+                    f"{sample_name}_{gene}_{params.min_count}.dot",
+                )
+                with open(file_name, "w") as f:
+                    f.write(dot_string)
 
-            has_paired = any(r.mate != Mate.UNPAIRED for r in gene_reads)
-            if has_paired:
-                ann = threading_mod.thread_reads_paired(
-                    pruned_graph, gene_reads, kmer_counts.k
+            threading_annotations = None
+            if gene_reads:
+                start = time.monotonic()
+                log.info("[%s] Threading reads through assembly graph...", gene)
+                from ..io.records import Mate
+
+                has_paired = any(r.mate != Mate.UNPAIRED for r in gene_reads)
+                if has_paired:
+                    ann = threading_mod.thread_reads_paired(
+                        pruned_graph, gene_reads, kmer_counts.k
+                    )
+                else:
+                    ann = threading_mod.thread_reads(
+                        pruned_graph, gene_reads, kmer_counts.k
+                    )
+                supported = sum(
+                    1 for s in ann.edge_support.values() if s.read_support_total > 0
                 )
-            else:
-                ann = threading_mod.thread_reads(
-                    pruned_graph, gene_reads, kmer_counts.k
+                log.info(
+                    "[%s] Threading: %d/%d edges have read support, %d branch "
+                    "links, %d paired links. Time: %s",
+                    gene, supported, pruned_graph.edge_count(),
+                    len(ann.branch_links), len(ann.paired_links),
+                    format_duration(time.monotonic() - start),
                 )
-            supported = sum(
-                1 for s in ann.edge_support.values() if s.read_support_total > 0
+                threading_annotations = ann
+
+            path_start = time.monotonic()
+            log.info(
+                "[%s] Traversing the assembly graph to find paths from forward "
+                "to reverse primers...", gene,
+            )
+            edge_preferences = None
+            if threading_annotations is not None:
+                edge_preferences = bubble_mod.resolve_bubbles(
+                    pruned_graph, threading_annotations
+                )
+            all_paths = paths_mod.get_assembly_paths(
+                pruned_graph, kmer_counts, params, edge_preferences
             )
             log.info(
-                "[%s] Threading: %d/%d edges have read support, %d branch "
-                "links, %d paired links. Time: %s",
-                gene, supported, pruned_graph.edge_count(),
-                len(ann.branch_links), len(ann.paired_links),
-                format_duration(time.monotonic() - start),
+                "[%s] Found %d paths. Time: %s",
+                gene, len(all_paths), format_duration(time.monotonic() - path_start),
             )
-            threading_annotations = ann
 
-        path_start = time.monotonic()
-        log.info(
-            "[%s] Traversing the assembly graph to find paths from forward "
-            "to reverse primers...", gene,
-        )
-        edge_preferences = None
-        if threading_annotations is not None:
-            edge_preferences = bubble_mod.resolve_bubbles(
-                pruned_graph, threading_annotations
-            )
-        all_paths = paths_mod.get_assembly_paths(
-            pruned_graph, kmer_counts, params, edge_preferences
-        )
-        log.info(
-            "[%s] Found %d paths. Time: %s",
-            gene, len(all_paths), format_duration(time.monotonic() - path_start),
-        )
-
-        if all_paths:
-            records, _ = paths_mod.generate_sequences_from_paths(
-                pruned_graph, all_paths, kmer_counts, sample_name, params,
-                amplicon_index, threading_annotations,
-            )
-            if records:
-                log.info("[%s] Obtained %d PCR product(s).", gene, len(records))
-                assembly_records_all.extend(records)
-                failure_reason = None
-
-    phases.add("assembly", time.monotonic() - t_phase)
+            if all_paths:
+                records, _ = paths_mod.generate_sequences_from_paths(
+                    pruned_graph, all_paths, kmer_counts, sample_name, params,
+                    amplicon_index, threading_annotations,
+                )
+                if records:
+                    log.info("[%s] Obtained %d PCR product(s).", gene, len(records))
+                    assembly_records_all.extend(records)
+                    failure_reason = None
 
     if (max_forward_count < 5) or (max_reverse_count < 5):
         log.info(

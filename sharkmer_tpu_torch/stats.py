@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import logging
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -109,27 +110,23 @@ def run_pcr(
 
     log.info("Running in silico PCR...")
     log.info("Filtering kmers with count < %d before PCR", filtered.min_count)
-    import time as _time
-
+    from .pcr.primers import warm_panel_scans
     from .utils import phases
 
-    t_warm = _time.monotonic()
-    filtered.warm_caches()  # one mirror/rc-index build, not one per worker
-    # reset AFTER warm_caches: its warmup reach calls route through
-    # _drive_closure and would otherwise pollute the "closures" phase
-    phases.reset()
-    phases.add("warm_caches", _time.monotonic() - t_warm)
+    phases.reset()  # the sPCR phases start here
+    # one mirror/rc-index build, not one per worker (its warm-up reach
+    # calls are left out of the "closures" phase)
+    with phases.span(phases.WARM_UP):
+        filtered.warm_caches()
     # pre-fetch every gene's primer scans in one batched dispatch
-    from .pcr.primers import warm_panel_scans
-
-    t_scans = _time.monotonic()
-    warm_panel_scans(filtered, pcr_runs)
-    phases.add("panel_scans", _time.monotonic() - t_scans)
+    with phases.span("panel_scans"):
+        warm_panel_scans(filtered, pcr_runs)
 
     def one(params: PCRParams):
-        return do_pcr(
-            filtered, sample, params, dump_graph, directory, reads, max_nodes
-        )
+        with phases.span("spcr.gene", tag=f"{params.gene_name}@"
+                         f"{threading.current_thread().name}"):
+            return do_pcr(filtered, sample, params, dump_graph, directory,
+                          reads, max_nodes)
 
     if threads > 1:
         with ThreadPoolExecutor(max_workers=threads) as pool:

@@ -5,7 +5,10 @@
 * The host layers are copies of the JAX package's (which cannot be
   imported without jax): each copy's code must equal its original
   apart from import statements and docstrings. Docstrings may differ
-  because the copies describe the port, and comments are not code.
+  because the copies describe the port, and comments are not code;
+  neither is the timing around the code (``utils/phases``, the port's
+  trace registry and no copy: its calls, the bodies of its ``with``
+  blocks as they stand, and the clock reads only they used).
 """
 
 import ast
@@ -24,8 +27,7 @@ COPIES = [
     (f"sharkmer_tpu_torch/{m}", f"sharkmer_tpu/{m}")
     for m in (
         "cli.py", "stats.py", "format.py", "__main__.py",
-        "utils/__init__.py", "utils/levenshtein.py", "utils/phases.py",
-        "utils/progress.py",
+        "utils/__init__.py", "utils/levenshtein.py", "utils/progress.py",
         "io/__init__.py", "io/fastq.py", "io/native.py", "io/records.py",
         "io/writers.py", "io/cache.py", "io/ena.py",
         "pcr/__init__.py", "pcr/bubble.py", "pcr/counts.py", "pcr/graph.py",
@@ -55,16 +57,48 @@ ALLOWED = {"sharkmer_tpu_torch/io/native.py": {"_NATIVE_DIR", "_SRC", "_LIB",
                "panel_amplicons"}}
 
 
+def _timing(node) -> bool:
+    """A call into ``phases`` (``phases.add(...)``, ``phases.span(...)``)."""
+    return (isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and isinstance(node.func.value, ast.Name)
+            and node.func.value.id == "phases")
+
+
+def _clock_reads(tree) -> set:
+    """Names assigned a clock read (``t = time.monotonic()``) that no
+    code reads."""
+    loaded = {n.id for n in ast.walk(tree)
+              if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)}
+    return {n.targets[0].id for n in ast.walk(tree)
+            if isinstance(n, ast.Assign) and len(n.targets) == 1
+            and isinstance(n.targets[0], ast.Name)
+            and isinstance(n.value, ast.Call)
+            and isinstance(n.value.func, ast.Attribute)
+            and n.value.func.attr in ("monotonic", "perf_counter")
+            and n.targets[0].id not in loaded}
+
+
 def _code(path: str, allowed: set[str]) -> str:
-    """The module's AST without imports, docstrings and ``allowed``
-    top-level definitions."""
+    """The module's AST without imports, docstrings, timing and
+    ``allowed`` top-level definitions."""
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read())
+    unused = set()
 
     def strip(body):
         out = []
         for i, node in enumerate(body):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
+                continue
+            if isinstance(node, ast.Expr) and _timing(node.value):
+                continue
+            if isinstance(node, ast.With) and all(
+                    _timing(item.context_expr) for item in node.items):
+                out.extend(strip(node.body))
+                continue
+            if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                    and getattr(node.targets[0], "id", None) in unused):
                 continue
             if (i == 0 and isinstance(node, ast.Expr)
                     and isinstance(node.value, ast.Constant)
@@ -83,6 +117,8 @@ def _code(path: str, allowed: set[str]) -> str:
             return getattr(node.targets[0], "id", None)
         return None
 
+    tree.body = strip(tree.body)
+    unused = _clock_reads(tree)  # read only by the timing just dropped
     tree.body = [n for n in strip(tree.body) if name(n) not in allowed]
     return ast.dump(tree)
 
