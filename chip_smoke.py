@@ -43,7 +43,14 @@ Phases, each printed on its own lines; every check raises on failure:
 3. the card's dependent-load latency through L2 and from DRAM
    (``csrc/chase.cu``, a pointer chase), for the latency bounds; each
    kernel against its plain PyTorch version on the card, at the main
-   path's shapes: ``run_ends``/``run_starts`` on 2^27 sorted int64 keys
+   path's shapes: ``encode`` on the loader's [131072, 160] batch at k=19
+   (reads with N runs and ragged pad tails: keys and both totals exact,
+   timed beside its byte bound), then at k 1, 17, 19, 21, 25, 27 and 31
+   on widths 32, 33, 160 and 4096, narrower than k, long reads in tiles,
+   rows off the 16 B alignment, and batches and keys with no mapped byte
+   past either end, so that a stray read or write faults
+   (``encode_phase``);
+   ``run_ends``/``run_starts`` on 2^27 sorted int64 keys
    (the drain width), also held to ``torch.searchsorted`` and timed
    beside it, then on 2^27 equal keys, on 2^24 sorted keys (the 2^24
    cell's drain width) and at ragged lengths around their tile, one at
@@ -195,7 +202,7 @@ Phases, each printed on its own lines; every check raises on failure:
     committed cell, and its split of the child's wall (before, inside
     and after ``main()``) summing to that wall within 0.5 s;
 22. the chunked spectra at depth, each run held to
-    ``chunk_spectra_reference`` (the port's loader and encoding, then
+    ``chunk_spectra_reference`` (the port's loader and plain encoding, then
     ``torch.sort`` and ``torch.unique_consecutive`` folding the chunks
     in order, no count store): first the reference itself on the first
     250k reads with 10 chunks, written through the port's writers,
@@ -336,6 +343,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -430,6 +438,11 @@ CHUNK_READS = 250_000
 CHUNK_ORACLE = os.path.join(HERE, "oracles", "cnidaria", "synthetic-seed0",
                             f"chunks10_{CHUNK_READS}")
 K = 19
+# phase 3's encode: the loader's batch (2^17 reads of 160 codes) at K, then
+# exactness at each k of ENCODE_KS on each width of ENCODE_WIDTHS
+ENCODE_SHAPE = (HASH_READS, 160)
+ENCODE_KS = (1, 17, 21, 25, 27, 31)
+ENCODE_WIDTHS = (32, 33, 4096)
 # phase 22: the chunked runs at depth, each held to chunk_spectra_reference
 # (label, reads, --chunks, further CLI arguments); the four-card run only
 # where four cards are visible (one shard a card)
@@ -554,6 +567,9 @@ KERNELS = {
                     "sharkmer_tpu/ops/hashtable.py:69"),
     "hash_lookup": ("sharkmer_tpu_torch/csrc/hash_table.cu",
                     "sharkmer_tpu/ops/hashtable.py:199"),
+    # no Pallas kernel: the JAX package's encode is one jitted XLA function
+    "encode": ("sharkmer_tpu_torch/csrc/encode.cu",
+               "sharkmer_tpu/ops/encoding.py:88"),
 }
 
 
@@ -1551,6 +1567,14 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
     wall = time.monotonic() - start
     counts = {name: fn.launches for name, fn in kernels.items()}
     require(rc == 0, f"{label}: the CLI exited {rc}")
+    # the encode kernel once a batch or flush: the count trace's counter
+    trace = next((m for m in run_log.messages if "count trace:" in m), "")
+    encodes = re.search(r"\bencode\.kernel (\d+)", trace)
+    counts["encode_calls"] = int(encodes.group(1)) if encodes else 0
+    require(counts["encode"] == counts["encode_calls"],
+            f"{label}: {counts['encode']} encode launches for "
+            f"{counts['encode_calls']} encode.kernel calls on its count "
+            f"trace")
     require(not run_log.fallbacks,
             f"{label}: the sPCR index fell back: {run_log.fallbacks}")
     require(not ctx.plain_closures,
@@ -1603,6 +1627,8 @@ def drive_main_path(ctx, label: str, n_reads: int, extra=(),
               f"{waves[0]}-{waves[-1]} queries (median "
               f"{waves[len(waves) // 2]})")
     print(f"{label}: kernel launches {counts}", flush=True)
+    if trace:
+        print(f"{label}: {trace.strip()}", flush=True)
     for line in run_log.closures:
         # the kept attempt of each call: roots, iters, n_vis, f_cap, wall
         print(f"{label}: closure call: {line[len('reach: '):]}")
@@ -1628,7 +1654,8 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
     """The ``n_chunks`` cumulative spectra of ``--chunks n_chunks`` on the
     first ``n_reads`` reads of ``fastq`` (0: all of them), computed
     without the code under test: the port's FASTQ loader
-    (``io/native.py``) and encoding (``ops/encoding.canonical_kmers``),
+    (``io/native.py``) and plain encoding
+    (``ops/encoding.canonical_kmers_plain``, not the encode kernel),
     read ``i`` in chunk ``(i // READS_PER_TURN) % n_chunks``, and the
     chunks folded in order into the prefix's sorted (key, count) arrays
     on ``device`` by ``torch.sort``, ``torch.unique_consecutive`` and a
@@ -1642,7 +1669,7 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
     import torch
 
     from sharkmer_tpu_torch.io import native
-    from sharkmer_tpu_torch.ops.encoding import canonical_kmers
+    from sharkmer_tpu_torch.ops.encoding import canonical_kmers_plain
 
     device = torch.device(device)
     require(native.available(), "the native FASTQ loader did not build")
@@ -1656,7 +1683,7 @@ def chunk_spectra_reference(fastq: str, n_reads: int, n_chunks: int, k: int,
                 codes = codes[: n_reads - seen]
             turn = np.arange(seen, seen + codes.shape[0]) // READS_PER_TURN
             seen += codes.shape[0]
-            kmers, valid = canonical_kmers(
+            kmers, valid = canonical_kmers_plain(
                 torch.from_numpy(np.ascontiguousarray(codes)).to(device), k)
             chunk = torch.from_numpy(turn % n_chunks).to(device)
             n_kmers += int(valid.sum())
@@ -2559,10 +2586,239 @@ def run_scan_phase(torch, np, card: str, kernels) -> dict:
             for name, runs in inputs.items()}
 
 
+def encode_codes(np, n: int, width: int, seed: int):
+    """``[n, width]`` codes as the loader gives them: reads of 5/8 of the
+    width or more, a base in 200 an N, runs of 8 Ns in a read in 20, the
+    rest of each row pad."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(n, width), dtype=np.uint8)
+    codes[rng.random((n, width)) < 0.005] = 4
+    rows = np.flatnonzero(rng.random(n) < 0.05)
+    starts = rng.integers(0, max(width - 8, 1), size=rows.size)
+    cols = np.minimum(starts[:, None] + np.arange(8), width - 1)
+    codes[rows[:, None], cols] = 4
+    lens = rng.integers(width * 5 // 8, width + 1, size=n)
+    codes[np.arange(width)[None, :] >= lens[:, None]] = 5
+    return codes
+
+
+class GuardedBuffer:
+    """``n_bytes`` of device memory with no mapped byte next to either
+    end: one allocation of CUDA's virtual memory management mapped alone
+    in a reserved range that is a granule wider on each side, the buffer
+    placed at the mapping's start or, ``at_end``, ending at its last
+    byte. A kernel that reads or writes past the buffer on the guarded
+    side faults with an illegal address, where memory from the caching
+    allocator would give it a neighbour's bytes. ``view(torch, dtype,
+    shape)`` is a tensor on it (``__cuda_array_interface__``);
+    ``free()`` unmaps it once the card is done with it."""
+
+    def __init__(self, torch, n_bytes: int, at_end: bool):
+        import ctypes
+
+        class Location(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+        class AllocFlags(ctypes.Structure):
+            _fields_ = [("compressionType", ctypes.c_ubyte),
+                        ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                        ("usage", ctypes.c_ushort),
+                        ("reserved", ctypes.c_ubyte * 4)]
+
+        class Prop(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int),
+                        ("requestedHandleTypes", ctypes.c_int),
+                        ("location", Location),
+                        ("win32HandleMetaData", ctypes.c_void_p),
+                        ("allocFlags", AllocFlags)]
+
+        class Access(ctypes.Structure):
+            _fields_ = [("location", Location), ("flags", ctypes.c_int)]
+
+        u64, size_t = ctypes.c_uint64, ctypes.c_size_t
+        self.cu = cu = ctypes.CDLL("libcuda.so.1")
+        torch.cuda.synchronize()  # the primary context, current here
+        here = Location(1, torch.cuda.current_device())  # a device
+        prop = Prop(type=1, location=here)  # pinned, no handle type
+        gran = size_t()
+        self._ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran),
+                                                  ctypes.byref(prop), 0),
+                 "cuMemGetAllocationGranularity")
+        g = gran.value
+        self.size = max(-(-n_bytes // g), 1) * g
+        self.span = self.size + 2 * g
+        base, self.handle = u64(), u64()
+        self._ok(cu.cuMemAddressReserve(ctypes.byref(base), size_t(self.span),
+                                        size_t(g), u64(0), u64(0)),
+                 "cuMemAddressReserve")
+        self.base = base.value
+        self._ok(cu.cuMemCreate(ctypes.byref(self.handle), size_t(self.size),
+                                ctypes.byref(prop), u64(0)), "cuMemCreate")
+        self.mapped = self.base + g
+        self._ok(cu.cuMemMap(u64(self.mapped), size_t(self.size), size_t(0),
+                             self.handle, u64(0)), "cuMemMap")
+        access = Access(here, 3)  # read and write
+        self._ok(cu.cuMemSetAccess(u64(self.mapped), size_t(self.size),
+                                   ctypes.byref(access), size_t(1)),
+                 "cuMemSetAccess")
+        self.ptr = self.mapped + (self.size - n_bytes if at_end else 0)
+        self.n_bytes = n_bytes
+
+    @staticmethod
+    def _ok(rc: int, what: str) -> None:
+        require(rc == 0, f"{what} returned CUresult {rc}")
+
+    def view(self, torch, dtype, shape):
+        typestr = {torch.uint8: "|u1", torch.int64: "<i8"}[dtype]
+        itemsize = 1 if dtype == torch.uint8 else 8
+        n = 1
+        for d in shape:
+            n *= d
+        require(n * itemsize == self.n_bytes,
+                f"a {shape} {dtype} view of {self.n_bytes} bytes")
+        holder = types.SimpleNamespace(__cuda_array_interface__={
+            "shape": tuple(shape), "typestr": typestr, "strides": None,
+            "data": (self.ptr, False), "version": 2})
+        return torch.as_tensor(holder, device="cuda")
+
+    def free(self) -> None:
+        import ctypes
+
+        u64, size_t = ctypes.c_uint64, ctypes.c_size_t
+        self._ok(self.cu.cuMemUnmap(u64(self.mapped), size_t(self.size)),
+                 "cuMemUnmap")
+        self._ok(self.cu.cuMemRelease(self.handle), "cuMemRelease")
+        self._ok(self.cu.cuMemAddressFree(u64(self.base), size_t(self.span)),
+                 "cuMemAddressFree")
+
+
+def encode_guarded(torch, codes, k: int, at_end: bool) -> None:
+    """``codes`` (uint8 [n, width] on the card) encoded by one launch of
+    ``shk_encode`` from a ``GuardedBuffer`` into one, each placed with
+    ``at_end``, held to ``canonical_kmers_plain``: keys and both totals.
+    Past the guarded end of either buffer lies no mapped byte, so a read
+    past the batch or a write past the keys faults."""
+    from sharkmer_tpu_torch.kernels import encode
+    from sharkmer_tpu_torch.ops.encoding import (CODE_N,
+                                                 canonical_kmers_plain)
+
+    n, width = codes.shape
+    w = max(width - k + 1, 0)
+    src = GuardedBuffer(torch, n * width, at_end)
+    guarded = src.view(torch, torch.uint8, (n, width))
+    guarded.copy_(codes)
+    dst = GuardedBuffer(torch, 8 * n * w, at_end) if w else None
+    keys = (dst.view(torch, torch.int64, (n, w)) if dst else
+            torch.empty((n, 0), dtype=torch.int64, device="cuda"))
+    keys.fill_(-1)
+    totals = torch.zeros(2, dtype=torch.int64, device="cuda")
+    p = encode.plan(width, k)
+    rc = encode._lib().shk_encode(
+        guarded.data_ptr(), keys.data_ptr(), totals.data_ptr(), n, width, k,
+        p.tile, p.n_tiles, p.seg_per_block, p.slot_words,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()  # a read or write past a guard raises here
+    what = (f"[{n}, {width}] at k={k}, guarded "
+            f"{'after its last' if at_end else 'before its first'} byte")
+    require(rc == 0, f"encode: launch failed (cudaError {rc}) on {what}")
+    want, valid = canonical_kmers_plain(codes, k)
+    require(torch.equal(keys, want), f"encode: keys differ on {what}")
+    want_totals = [int(valid.sum()), int((codes < CODE_N).sum())]
+    require(totals.tolist() == want_totals,
+            f"encode: totals {totals.tolist()} vs {want_totals} on {what}")
+    del guarded, keys
+    torch.cuda.synchronize()
+    src.free()
+    if dst:
+        dst.free()
+
+
+def encode_phase(torch, np, card: str) -> dict:
+    """The encode kernel (``kernels/encode.encode``) against
+    ``canonical_kmers_plain`` on the card: keys exact, and its two totals
+    (valid windows, codes below 4) equal to the plain mask's and a count
+    of the codes. At the main path's ``ENCODE_SHAPE`` and K, timed
+    beside the plain version with its byte bound (the codes read once,
+    the keys written once); then at every k of ENCODE_KS on each width
+    of ENCODE_WIDTHS and 160, batches narrower than k (no key, the bases
+    added), single long reads cut into tiles that overlap by k - 1 (an N
+    run across a seam), a batch whose rows start off the 16 B loads'
+    alignment, and batches held in a ``GuardedBuffer`` against either end
+    of their mapping (``encode_guarded``)."""
+    from sharkmer_tpu_torch.kernels import encode
+    from sharkmer_tpu_torch.ops.encoding import (CODE_N,
+                                                 canonical_kmers_plain)
+
+    def check(what, codes, k):
+        totals = torch.zeros(2, dtype=torch.int64, device="cuda")
+        before = encode.encode.launches
+        keys = encode.encode(codes, k, totals)
+        want, valid = canonical_kmers_plain(codes, k)
+        torch.cuda.synchronize()
+        require(encode.encode.launches == before + 1,
+                f"encode: {encode.encode.launches - before} launches on "
+                f"{what}")
+        require(keys.shape == want.shape and torch.equal(keys, want),
+                f"encode: keys differ from plain on {what}")
+        want_totals = [int(valid.sum()), int((codes < CODE_N).sum())]
+        require(totals.tolist() == want_totals,
+                f"encode: totals {totals.tolist()} vs {want_totals} on "
+                f"{what}")
+        return want_totals
+
+    n, width = ENCODE_SHAPE
+    codes = torch.from_numpy(encode_codes(np, n, width, 5)).cuda()
+    what = f"[{n}, {width}] codes at k={K}"
+    totals = check(what, codes, K)
+    w = width - K + 1
+    record = compare(torch, "encode", lambda: encode.encode(codes, K),
+                     lambda: canonical_kmers_plain(codes, K)[0], 20, card,
+                     what, plain_reps=5)
+    record.update(byte_bound(n * width + 8 * n * w), kmers=totals[0],
+                  bases=totals[1])
+    del codes
+    checked = []
+    for k in ENCODE_KS + (K,):
+        for width in ENCODE_WIDTHS + (160,):
+            rows = max(1, (1 << 21) // width)
+            codes = torch.from_numpy(
+                encode_codes(np, rows, width, k * width)).cuda()
+            check(f"[{rows}, {width}] at k={k}", codes, k)
+            checked.append((k, width))
+        if k > 1:
+            narrow = torch.from_numpy(encode_codes(np, 1000, k - 1, k)).cuda()
+            check(f"[1000, {k - 1}] (narrower than k={k})", narrow, k)
+    for width, k in ((20_000, K), (9000, 31), (4097, 1)):
+        long = encode_codes(np, 1, width, width)
+        long[0, :] = np.random.default_rng(k).integers(0, 4, width)
+        long[0, encode.LONG_TILE - 3:encode.LONG_TILE + 2] = 4  # a seam
+        check(f"one read of {width} codes at k={k}",
+              torch.from_numpy(long).cuda(), k)
+    flat = torch.from_numpy(encode_codes(np, 4097, 160, 9).reshape(-1)).cuda()
+    shifted = flat[1:1 + 4096 * 160].view(4096, 160)
+    require(shifted.data_ptr() % 16 == 1, "the shifted codes are aligned")
+    check("[4096, 160] codes 1 B past a 16 B boundary", shifted, K)
+    del flat, shifted
+    # each batch and its keys alone in a mapping, against either end of it
+    guarded = [((n, width), K, 5), ((4099, 33), 31, 6), ((1000, K - 1), K, 7),
+               ((1, 20_000), K, 8), ((1, 9000), 31, 9)]
+    for (rows, cols), k, seed in guarded:
+        codes = torch.from_numpy(encode_codes(np, rows, cols, seed)).cuda()
+        for at_end in (True, False):
+            encode_guarded(torch, codes, k, at_end)
+    print(f"encode: exact with both totals at k x width {checked}, "
+          f"narrower than each k, three long reads and off-alignment rows; "
+          f"no read or write past the batch or its keys on "
+          f"{[shape for shape, _, _ in guarded]}, each guarded after its "
+          f"last byte and before its first, on {card}", flush=True)
+    return record
+
+
 def kernel_phase(torch, np, card: str, kernels) -> dict:
     from sharkmer_tpu_torch.kernels import stitch
 
     record = run_scan_phase(torch, np, card, kernels)
+    record["encode"] = encode_phase(torch, np, card)
     n_rows, width = STITCH_SHAPE
     rng = np.random.default_rng(2)
     lens = rng.integers(0, width + 1, size=n_rows)
@@ -2597,9 +2853,9 @@ def first_batch_kmers(torch, np, k: int = K):
         codes, _ = reader.read_batch(HASH_READS)
     require(codes.shape[0] == HASH_READS,
             f"read {codes.shape[0]} of {HASH_READS} reads in one batch")
-    kmers, valid = canonical_kmers(
+    kmers = canonical_kmers(
         torch.from_numpy(np.ascontiguousarray(codes)).cuda(), k)
-    return kmers.reshape(-1).contiguous(), int(valid.sum())
+    return kmers.reshape(-1).contiguous(), int((kmers != INT64_MAX).sum())
 
 
 def table_rows(torch, slots):
@@ -3494,7 +3750,8 @@ def ingest_steps_phase(ctx, np, card: str, runs: dict, placements) -> dict:
                 require(max(shard_keys) <= INGEST_LOAD * INGEST_CAP,
                         f"{label}: a shard holds {max(shard_keys)} keys, past "
                         f"{INGEST_LOAD} of {INGEST_CAP} slots")
-                want_launches = {"hash_insert": groups * n_steps}
+                want_launches = {"hash_insert": groups * n_steps,
+                                 "encode": S * n_steps}
             else:
                 for mk, mc in zip(*state):
                     live = mk != INT64_MAX
@@ -3504,7 +3761,8 @@ def ingest_steps_phase(ctx, np, card: str, runs: dict, placements) -> dict:
                 require(max(shard_keys) < INGEST_CAP,
                         f"{label}: a shard holds {max(shard_keys)} keys, "
                         f"cap {INGEST_CAP} (the step cuts there)")
-                want_launches = {"run_starts": S * n_steps}
+                want_launches = {"run_starts": S * n_steps,
+                                 "encode": S * n_steps}
             keys, order = torch.sort(torch.cat(keys))
             counts_ = torch.cat(counts_)[order]
             require(torch.equal(keys, ref_keys)
@@ -4159,7 +4417,11 @@ def required_launches() -> dict:
                             "shards_load", *chunked_hash, *k31_hash,
                             *panels["hash"], *options["hash"]),
             "hash_lookup": ("hash_device", "shards_hash_device",
-                            *options["device"])}
+                            *options["device"]),
+            "encode": ("default", "max_agg_2^24", "4M", "hash",
+                       "hash_device", "hash_4M", "shards", "shards_hash",
+                       *chunked_sorted, *chunked_hash, *k31_hash,
+                       *entries)}
 
 
 def check_required(runs, present_only: bool = False) -> None:
@@ -4208,7 +4470,8 @@ def main() -> int:
 
     from sharkmer_tpu_torch.device import shard_devices
     from sharkmer_tpu_torch.io import native
-    from sharkmer_tpu_torch.kernels import build, closure, probe, run_scan, stitch
+    from sharkmer_tpu_torch.kernels import (build, closure, encode, probe,
+                                            run_scan, stitch)
     from sharkmer_tpu_torch.kernels import hash as hash_kernels
 
     phase("1. card")
@@ -4262,7 +4525,8 @@ def main() -> int:
                    "stitch_rows": stitch.stitch_rows,
                    "reach_closure": closure.reach_closure,
                    "hash_insert": hash_kernels.hash_insert,
-                   "hash_lookup": hash_kernels.hash_lookup}
+                   "hash_lookup": hash_kernels.hash_lookup,
+                   "encode": encode.encode}
         if args == ["--waves"]:
             phase("8b. the lookup wave path on synthetic tables (alone: "
                   "--waves)")

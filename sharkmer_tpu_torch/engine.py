@@ -67,7 +67,9 @@ class IngestStats:
     n_reads_read: int = 0
     n_bases_read: int = 0
     n_reads_ingested: int = 0
-    n_bases_ingested: int = 0  # valid (non-N) bases
+    # valid (non-N) bases and k-mers: counted on the device, filled in by
+    # consolidate() (its one read of the totals), so read after it
+    n_bases_ingested: int = 0
     n_kmers_ingested: int = 0
 
 
@@ -89,7 +91,8 @@ class CountingEngine:
     _chunk_pending: list[list] = field(init=False)
     _pending_reads: list[int] = field(init=False)
     _stream_buffer: list[bytes] = field(init=False)
-    _kmer_count_dev: object = field(init=False, default=None)  # device int64
+    # device int64 [2]: the valid k-mers and bases ingested
+    _totals_dev: object = field(init=False, default=None)
 
     def __post_init__(self):
         phases.begin()  # one engine, one run record
@@ -238,22 +241,18 @@ class CountingEngine:
             codes_dev = torch.from_numpy(
                 np.ascontiguousarray(codes)).to(self.device)
         with phases.span("ingest.encode"):
-            kmers, valid = encoding.canonical_kmers(codes_dev, self.k)
-            # k-mer totals accumulate ON DEVICE: reading `valid` (or any
-            # per-batch scalar) on the host would wait for the device
-            # every batch
-            batch_kmers = valid.sum()
-            if self._kmer_count_dev is None:
-                self._kmer_count_dev = batch_kmers
-            else:
-                self._kmer_count_dev = self._kmer_count_dev + batch_kmers
-        # the host's count runs while the card encodes
-        with phases.span("ingest.host"):
-            n_valid_bases = int(np.sum(codes < encoding.CODE_N))
+            # the valid k-mers and bases accumulate ON DEVICE, in the
+            # encode's one pass: reading a per-batch count on the host
+            # would wait for the device every batch
+            if self._totals_dev is None:
+                self._totals_dev = torch.zeros(2, dtype=torch.int64,
+                                               device=self.device)
+            kmers = encoding.canonical_kmers(codes_dev, self.k,
+                                             self._totals_dev)
+            phases.count("encode.kernel")  # one kernel launch on the card
         with phases.span("ingest.insert"):
             table = table.insert_kmers(kmers.reshape(-1))
         self.stats.n_reads_ingested += n_rows
-        self.stats.n_bases_ingested += n_valid_bases
         return table
 
     def _ingest_seqs(self, seqs: list, table):
@@ -299,10 +298,12 @@ class CountingEngine:
             if self.n_chunks > 0:  # chunks == 1: one snapshot
                 histo_vecs = [self._spectrum()]
 
-        # materialize the device-side k-mer total (one sync per run)
-        if self._kmer_count_dev is not None:
+        # materialize the device-side totals (one sync per run)
+        if self._totals_dev is not None:
             with phases.sync("kmers.total"):
-                self.stats.n_kmers_ingested = int(self._kmer_count_dev)
+                n_kmers, n_bases = self._totals_dev.tolist()
+            self.stats.n_kmers_ingested = n_kmers
+            self.stats.n_bases_ingested = n_bases
         n_hashed = self.table.n_total()
         if n_hashed != self.stats.n_kmers_ingested:
             raise AssertionError(

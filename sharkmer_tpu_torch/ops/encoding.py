@@ -7,11 +7,14 @@ Semantics match the JAX package's ``sharkmer_tpu.ops.encoding``:
 * ``N`` splits the sequence: no window spanning an N emits a k-mer.
 * k must be in 1..=31.
 
-The numpy helpers are copied verbatim. ``canonical_kmers`` is written
-in torch: each output position is the OR of k shifted slices of the
-code array (k elementwise passes over the whole batch, no sequential
-scan), then the canonical min and the N/pad validity mask. Keys are
-int64 on the device (``ops/keys.py``); an invalid window holds the
+The numpy helpers are copied verbatim. ``canonical_kmers_plain`` is
+written in torch: each output position is the OR of k shifted slices of
+the code array (k elementwise passes over the whole batch, no sequential
+scan), then the canonical min and the N/pad validity mask. It is the CPU
+path and the oracle of the hand-written kernel
+(``kernels/encode.encode``, ``csrc/encode.cu``), which
+``canonical_kmers`` launches on a CUDA tensor, with no fallback. Keys
+are int64 on the device (``ops/keys.py``); an invalid window holds the
 device sentinel.
 """
 
@@ -74,19 +77,39 @@ def codes_to_batch(seqs: list[np.ndarray], width: int | None = None) -> np.ndarr
 
 
 
-def canonical_kmers(codes: torch.Tensor, k: int):
+def canonical_kmers(codes: torch.Tensor, k: int,
+                    totals: torch.Tensor | None = None) -> torch.Tensor:
     """Extract canonical k-mers from a fixed-width code batch.
 
     Args:
       codes: uint8 tensor [n_reads, width] with values 0..3 (bases),
         4 (N) or 5 (pad), on the device the k-mers are wanted on.
       k: k-mer length, 1..31.
+      totals: int64 [2] on the codes' device, or None. Where given, the
+        batch's valid windows are added into ``totals[0]`` and its codes
+        below ``CODE_N`` into ``totals[1]``, on the device.
 
     Returns:
-      (kmers, valid): int64 [n_reads, width-k+1] canonical k-mers and a
-      bool mask of windows that contain only real bases. Invalid
-      positions hold ``keys.SENTINEL``.
+      int64 [n_reads, width-k+1] canonical k-mers; a window that holds a
+      code of 4 or 5 holds ``keys.SENTINEL`` (no k-mer is the sentinel,
+      so ``kmers != SENTINEL`` is the valid mask). One kernel launch on a
+      CUDA tensor, the plain version on a CPU tensor.
     """
+    if codes.device.type == "cpu":
+        kmers, valid = canonical_kmers_plain(codes, k)
+        if totals is not None:
+            totals += torch.stack([valid.sum(), (codes < CODE_N).sum()])
+        return kmers
+    from ..kernels.encode import encode
+
+    return encode(codes.contiguous(), k, totals)
+
+
+def canonical_kmers_plain(codes: torch.Tensor, k: int):
+    """``canonical_kmers`` in plain torch, on any device: the CPU path and
+    the kernel's oracle. Returns ``(kmers, valid)``, as the JAX package's
+    ``canonical_kmers`` does: the k-mers and the bool mask of windows that
+    hold only real bases, each computed on its own."""
     from .keys import SENTINEL
 
     _check_k(k)

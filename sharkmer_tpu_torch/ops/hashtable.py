@@ -149,7 +149,7 @@ class KmerTable:
         """Encode a [n, width] uint8 code batch and insert its canonical
         k-mers."""
         codes = torch.as_tensor(np.asarray(codes, np.uint8), device=self.device)
-        kmers, _ = canonical_kmers(codes, self.k)
+        kmers = canonical_kmers(codes, self.k)
         return self.insert_kmers(kmers.reshape(-1))
 
     def merge_from(self, other: "KmerTable") -> "KmerTable":

@@ -413,7 +413,7 @@ class SortedKmerStore:
 
     def ingest_codes(self, codes) -> "SortedKmerStore":
         codes = torch.as_tensor(np.asarray(codes, np.uint8), device=self.device)
-        kmers, _ = canonical_kmers(codes, self.k)
+        kmers = canonical_kmers(codes, self.k)
         return self.insert_kmers(kmers.reshape(-1))
 
     def merge_from(self, other: "SortedKmerStore") -> "SortedKmerStore":

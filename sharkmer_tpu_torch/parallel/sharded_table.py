@@ -177,7 +177,7 @@ class ShardedKmerTable:
 
     def ingest_codes(self, codes) -> "ShardedKmerTable":
         codes = torch.as_tensor(np.asarray(codes, np.uint8), device=self.device)
-        kmers, _ = canonical_kmers(codes, self.k)
+        kmers = canonical_kmers(codes, self.k)
         return self.insert_kmers(kmers.reshape(-1))
 
     def merge_from(self, other: "ShardedKmerTable") -> "ShardedKmerTable":
@@ -306,8 +306,7 @@ def make_ingest_step(devices, k: int, histo_max: int):
         shard_kmers = []
         for s in range(n_shards):
             dev = devices[s * len(devices) // n_shards]
-            kmers, _ = canonical_kmers(torch.as_tensor(codes[s], device=dev),
-                                       k)
+            kmers = canonical_kmers(torch.as_tensor(codes[s], device=dev), k)
             shard_kmers.append(kmers.reshape(-1))
         for (lo, _), g_slots, g_claims, dev in zip(groups, slots, claims,
                                                    devices):

@@ -172,7 +172,7 @@ class ShardedSortedStore:
 
     def ingest_codes(self, codes) -> "ShardedSortedStore":
         codes = torch.as_tensor(np.asarray(codes, np.uint8), device=self.device)
-        kmers, _ = canonical_kmers(codes, self.k)
+        kmers = canonical_kmers(codes, self.k)
         return self.insert_kmers(kmers.reshape(-1))
 
     def merge_from(self, other: "ShardedSortedStore") -> "ShardedSortedStore":
@@ -369,7 +369,7 @@ def make_sorted_ingest_step(devices, k: int, histo_max: int, cap: int):
                              f"not {n_shards} shards of {cap} on {devices}")
         shard_kmers = []
         for s, dev in enumerate(homes):
-            km, _ = canonical_kmers(torch.as_tensor(codes[s], device=dev), k)
+            km = canonical_kmers(torch.as_tensor(codes[s], device=dev), k)
             shard_kmers.append(km.reshape(-1))
         out_k, out_c = [], []
         for (lo, hi), dev in zip(groups, devices):

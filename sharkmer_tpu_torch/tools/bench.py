@@ -198,7 +198,7 @@ def count_pass(make_store, batches, consume: bool = False):
 
     store = make_store()
     for i, codes in enumerate(batches):
-        kmers, _ = canonical_kmers(codes, store.k)
+        kmers = canonical_kmers(codes, store.k)
         store = store.insert_kmers(kmers.reshape(-1))
         if consume:  # free each batch's device buffer as it lands
             batches[i] = None

@@ -156,7 +156,7 @@ def bare(argv) -> dict:
     stamp("reads generated")
 
     def ingest(store, codes):
-        kmers, _ = canonical_kmers(codes, store.k)
+        kmers = canonical_kmers(codes, store.k)
         store.insert_kmers(kmers.reshape(-1))
 
     store = SortedKmerStore(args.k, device)

@@ -345,17 +345,15 @@ def fastq_stages(path: str, max_reads: int, k: int, device) -> dict:
     synchronize(device)
     start = time.perf_counter()
     store = SortedKmerStore(k, device)
-    n_kmers = None
+    totals = torch.zeros(2, dtype=torch.int64, device=device)
     for i, codes in enumerate(on_device):
-        kmers, valid = encoding.canonical_kmers(codes, k)
-        batch_kmers = valid.sum()
-        n_kmers = batch_kmers if n_kmers is None else n_kmers + batch_kmers
+        kmers = encoding.canonical_kmers(codes, k, totals)
         store.insert_kmers(kmers.reshape(-1))
         on_device[i] = None
     store._flushed()
     synchronize(device)
     device_s = time.perf_counter() - start
-    n_kmers = 0 if n_kmers is None else int(n_kmers)
+    n_kmers = int(totals[0])
     launches = {name: fn.launches for name, fn in KERNELS.items()}
     print(f"(e) canonical_kmers + insert_kmers + flush on {device}: "
           f"{n_kmers} k-mers, {device_s:.3f} s; launches {launches}",

@@ -134,8 +134,11 @@ class Record:
                    if c == name)
 
     def describe(self, *roots: str) -> str:
-        """The spans under ``roots`` (calls, wall, self time) and their
-        host syncs by site: the CLI's ``count trace:`` line."""
+        """The spans under ``roots`` (calls, wall, self time), the
+        counters counted inside them, and their host syncs by site: the
+        CLI's ``count trace:`` line. A span or counter seen under
+        ``roots`` is given over the whole record (the record-stream
+        entry's groups run outside ``ingest.batch``)."""
         names = dict.fromkeys(
             path[-1] for path in self.spans() if path[0] in roots)
         parts = []
@@ -143,6 +146,10 @@ class Record:
             s = self.total(name)
             parts.append(f"{name} {s.wall:.3f}s/{s.calls} "
                          f"(self {s.self_s:.3f}s)")
+        counters = dict.fromkeys(
+            name for path, name in self._merged("counters")
+            if path and path[0] in roots)
+        parts.extend(f"{name} {self.counter(name)}" for name in counters)
         sites = self.sites(*roots)
         n, wait = self.syncs(*roots)
         by_site = ", ".join(f"{site} {v[0]}"

@@ -195,7 +195,7 @@ def test_hash_count_spans_syncs_and_grows(n_batches):
     batches = code_batches(n_batches, seed=n_batches)
     capacity, grows, seen = 1 << 12, 0, set()
     for codes, _lens in batches:
-        kmers, _valid = canonical_kmers(torch.from_numpy(codes), K)
+        kmers = canonical_kmers(torch.from_numpy(codes), K)
         while len(seen) + kmers.numel() > 0.70 * capacity:
             capacity, grows = 2 * capacity, grows + 1
         seen.update(kmers[kmers != SENTINEL].tolist())

@@ -46,7 +46,8 @@ def _codes(n_reads, width, seed):
 def test_canonical_kmers_matches_jax(k):
     codes = _codes(300, 96, seed=k)
     want_k, want_v = jax_encoding.canonical_kmers(jnp.asarray(codes), k)
-    got_k, got_v = encoding.canonical_kmers(torch.from_numpy(codes), k)
+    got_k = encoding.canonical_kmers(torch.from_numpy(codes), k)
+    got_v = got_k != SENTINEL  # the valid windows: no k-mer is the sentinel
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(
         keys_to_numpy(got_k.reshape(-1)), np.asarray(want_k).reshape(-1)
